@@ -1,0 +1,390 @@
+"""Two-level BVH traversal: the CUDA kernel's wrappers and its plain version.
+
+Counterpart of `rfw_tpu/ops/traverse.py`. The TPU kernel
+`_traverse_kernel_factory` (closest hit and any hit) becomes the hand-written
+CUDA kernel in `rfw_tpu_torch/csrc/traverse.cu`, built at first use by
+`ops._build`. Beside it, in this module:
+
+  * `prepare_scene` — counterpart of `prepare_pallas_scene`: node-major
+    arrays for the kernel, built on the scene's device from a TraceScene;
+  * `closest_hit` / `occluded` — counterparts of `pallas_closest_hit` /
+    `pallas_occluded`. For tensors on the card they launch the kernel (or
+    raise); for tensors on the CPU they run the plain version;
+  * `closest_hit_plain` / `occluded_plain` — a vectorised torch lockstep
+    walk over the same prepared arrays, one lane per ray, with the kernel's
+    per-ray semantics (visit order, leaf test, tie rules). The CPU tests
+    use it, and the smoke check compares the kernel with it on the card;
+  * `LAUNCHES` — how many times each kernel was launched.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from rfw_tpu_torch.accel.bvh_cpu import TREELET
+from rfw_tpu_torch.render.intersect import Hit, T_MAX, T_MIN
+
+ARITY = 8
+STACK_DEPTH = 96
+TSHIFT = TREELET.bit_length() - 1
+#: per-ray iteration cap: a malformed BVH yields a wrong but finite result
+MAX_ITERS = 1 << 19
+
+#: kernel launches per kind; each wrapper adds one where it launches
+LAUNCHES = {"closest": 0, "occluded": 0}
+
+
+class PreparedScene(NamedTuple):
+    """Node-major traversal arrays (all on one device).
+
+    nodes: (S, 64) i32 — supernode rows, BLAS supernodes first, then the
+      TLAS ones: 48 box-float bit patterns (child k: min3|max3 at 6k..6k+5),
+      8 child codes, 8 child counts. TLAS internal codes are offset by the
+      BLAS supernode count.
+    tris: (C*TREELET, 16) f32 — per triangle slot, the Woop affine in
+      floats 0..11 (rows u, v, w of [r | b]); floats 12..15 are zero.
+    insts: (I+1, 16) f32 — per instance the world->object 3x4 affine in
+      floats 0..11; the last row is the identity (world space).
+    roots: (max(I,1),) i32 — BLAS root supernode per instance.
+    """
+
+    nodes: torch.Tensor
+    tris: torch.Tensor
+    insts: torch.Tensor
+    roots: torch.Tensor
+    tlas_root: int
+    n_inst: int  # instance rows; also the index of the identity row
+
+
+def _woop12(v0, e1, e2):
+    """Per-triangle 3x4 world->unit-triangle affine (Woop's transform), as
+    `rfw_tpu/ops/traverse.py::_woop12`: rows map a point p to (u, v, w)
+    with p = v0 + u*e1 + v*e2 + w*n, n = cross(e1, e2). For a ray (o, d):
+    o' = A@o + b, d' = A@d, t = -o'_w / d'_w, u = o'_u + t*d'_u. Degenerate
+    (zero-area / padding) triangles get an all-zero affine, whose t is NaN
+    and fails every comparison. Returns (T, 12)."""
+    n = torch.linalg.cross(e1, e2, dim=-1)
+    det = torch.sum(n * n, dim=-1, keepdim=True)  # |n|^2
+    inv = torch.where(det > 0, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
+    r0 = torch.linalg.cross(e2, n, dim=-1) * inv
+    r1 = torch.linalg.cross(n, e1, dim=-1) * inv
+    r2 = n * inv
+    b0 = -torch.sum(r0 * v0, dim=-1, keepdim=True)
+    b1 = -torch.sum(r1 * v0, dim=-1, keepdim=True)
+    b2 = -torch.sum(r2 * v0, dim=-1, keepdim=True)
+    return torch.cat([r0, b0, r1, b1, r2, b2], dim=1)
+
+
+def prepare_scene(scene) -> PreparedScene:
+    """Build the kernel's node-major arrays from a TraceScene of tensors,
+    on the scene's device."""
+    if scene.blas8_code.shape[1] != ARITY:
+        raise ValueError(f"supernode arity {scene.blas8_code.shape[1]}; the "
+                         f"traversal is written for {ARITY}")
+    dev = scene.tri_v0.device
+    nb8 = int(scene.blas8_box.shape[0])
+    t_code = scene.tlas8_code.to(torch.int32)
+    t_code = torch.where(t_code >= 0, t_code + nb8, t_code)
+    box8 = torch.cat([scene.blas8_box, scene.tlas8_box]).to(torch.float32)
+    code8 = torch.cat([scene.blas8_code.to(torch.int32), t_code])
+    cnt8 = torch.cat([scene.blas8_cnt, scene.tlas8_cnt]).to(torch.int32)
+    nodes = torch.cat([box8.contiguous().view(torch.int32), code8, cnt8],
+                      dim=1).contiguous()
+
+    n_tri = int(scene.tri_v0.shape[0])
+    if n_tri:
+        w12 = _woop12(scene.tri_v0.float(), scene.tri_e1.float(),
+                      scene.tri_e2.float())
+    else:
+        w12 = torch.zeros((TREELET, 12), dtype=torch.float32, device=dev)
+    padt = -(-w12.shape[0] // TREELET) * TREELET - w12.shape[0]
+    tris = torch.cat([w12, torch.zeros((w12.shape[0], 4), dtype=torch.float32,
+                                       device=dev)], dim=1)
+    if padt:  # pack TREELET-aligns; defensive for hand-built scenes
+        tris = torch.cat([tris, torch.zeros((padt, 16), dtype=torch.float32,
+                                            device=dev)])
+
+    n_inst = int(scene.inst_matrix.shape[0])
+    inv12 = scene.inst_inv[:, :3, :].reshape(-1, 12).to(torch.float32)
+    ident = torch.tensor([[1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0]],
+                         dtype=torch.float32, device=dev)
+    inv12 = torch.cat([inv12, ident])
+    insts = torch.cat([inv12, torch.zeros((inv12.shape[0], 4),
+                                          dtype=torch.float32, device=dev)], dim=1)
+    roots = (scene.blas8_root.to(torch.int32) if n_inst
+             else torch.zeros(1, dtype=torch.int32, device=dev))
+    return PreparedScene(nodes=nodes, tris=tris.contiguous(),
+                         insts=insts.contiguous(), roots=roots.contiguous(),
+                         tlas_root=nb8, n_inst=n_inst)
+
+
+def _t_limit(t_limit, n: int, device) -> torch.Tensor:
+    tl = torch.as_tensor(t_limit, dtype=torch.float32, device=device)
+    return torch.broadcast_to(tl, (n,)).contiguous()
+
+
+# ---------------------------------------------------------------- plain path
+def _safe_inv(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.where(torch.abs(x) < 1e-20,
+                             torch.where(x < 0, -1e-20, 1e-20), x)
+
+
+def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
+    """Lockstep torch walk with the kernel's per-ray semantics. Each
+    iteration advances every live ray by one node visit; rays that finish
+    leave the active set."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    i32 = torch.int32
+    t_best = torch.clamp(_t_limit(t_limit, R, dev), max=T_MAX)
+    prim = torch.full((R,), -1, dtype=i32, device=dev)
+    hit_inst = torch.full((R,), -1, dtype=i32, device=dev)
+    hit_u = torch.zeros(R, dtype=torch.float32, device=dev)
+    hit_v = torch.zeros(R, dtype=torch.float32, device=dev)
+    occluded = torch.zeros(R, dtype=torch.bool, device=dev)
+
+    S = ps.nodes.shape[0]
+    boxes = ps.nodes[:, :6 * ARITY].contiguous().view(torch.float32)
+    boxes = boxes.reshape(S, ARITY, 6)
+    codes = ps.nodes[:, 6 * ARITY:7 * ARITY]
+    cnts = ps.nodes[:, 7 * ARITY:8 * ARITY]
+    treelets = ps.tris.reshape(-1, TREELET, 16)
+    n_inst = ps.n_inst
+    slot_ids = torch.arange(TREELET, device=dev)
+
+    node = torch.full((R,), ps.tlas_root, dtype=i32, device=dev)
+    inst = torch.full((R,), -1, dtype=i32, device=dev)
+    sp = torch.zeros(R, dtype=torch.int64, device=dev)
+    stack = torch.zeros((R, STACK_DEPTH, 2), dtype=i32, device=dev)
+    act = torch.arange(R, device=dev)
+
+    for _ in range(MAX_ITERS):
+        if act.numel() == 0:
+            break
+        nd, s, ins = node[act], sp[act], inst[act]
+        pop = nd == -1
+        live = ~(pop & (s <= 0))
+        if not bool(live.all()):
+            act, nd, s, ins, pop = act[live], nd[live], s[live], ins[live], pop[live]
+            if act.numel() == 0:
+                break
+        s = torch.where(pop, s - 1, s)
+        popped = stack[act, torch.clamp(s, min=0)]
+        nd = torch.where(pop, popped[:, 0], nd)
+        ins = torch.where(pop, popped[:, 1], ins)
+
+        # the ray in the current instance's object space
+        row = torch.where((ins < 0) | (ins >= n_inst), n_inst, ins).long()
+        m = ps.insts[row]
+        wo, wd = ray_o[act], ray_d[act]
+        ox = m[:, 0] * wo[:, 0] + m[:, 1] * wo[:, 1] + m[:, 2] * wo[:, 2] + m[:, 3]
+        oy = m[:, 4] * wo[:, 0] + m[:, 5] * wo[:, 1] + m[:, 6] * wo[:, 2] + m[:, 7]
+        oz = m[:, 8] * wo[:, 0] + m[:, 9] * wo[:, 1] + m[:, 10] * wo[:, 2] + m[:, 11]
+        dx = m[:, 0] * wd[:, 0] + m[:, 1] * wd[:, 1] + m[:, 2] * wd[:, 2]
+        dy = m[:, 4] * wd[:, 0] + m[:, 5] * wd[:, 1] + m[:, 6] * wd[:, 2]
+        dz = m[:, 8] * wd[:, 0] + m[:, 9] * wd[:, 1] + m[:, 10] * wd[:, 2]
+
+        new_node = torch.full_like(nd, -1)
+        new_inst = ins.clone()
+        finished = torch.zeros_like(pop)
+
+        # ---- treelet leaves: test the leaf's `count` slots
+        leaf = (nd <= -2).nonzero().squeeze(1)
+        if leaf.numel():
+            lv = -nd[leaf] - 2
+            first = (lv >> TSHIFT) << TSHIFT
+            count = (lv & (TREELET - 1)) + 1
+            ok_rows = first + count <= ps.tris.shape[0]
+            rec = treelets[torch.where(ok_rows, lv >> TSHIFT, 0).long()]
+            a = [rec[:, :, k] for k in range(12)]
+            lox, loy, loz = ox[leaf, None], oy[leaf, None], oz[leaf, None]
+            ldx, ldy, ldz = dx[leaf, None], dy[leaf, None], dz[leaf, None]
+            opu = a[0] * lox + a[1] * loy + a[2] * loz + a[3]
+            opv = a[4] * lox + a[5] * loy + a[6] * loz + a[7]
+            opw = a[8] * lox + a[9] * loy + a[10] * loz + a[11]
+            dpu = a[0] * ldx + a[1] * ldy + a[2] * ldz
+            dpv = a[4] * ldx + a[5] * ldy + a[6] * ldz
+            dpw = a[8] * ldx + a[9] * ldy + a[10] * ldz
+            t = -opw / dpw
+            u = opu + t * dpu
+            v = opv + t * dpv
+            rays = act[leaf]
+            tcur = t_best[rays]
+            ok = ((u >= -1e-7) & (v >= -1e-7) & (u + v <= 1 + 1e-7)
+                  & (t > T_MIN) & (t < tcur[:, None])
+                  & (slot_ids[None, :] < count[:, None]) & ok_rows[:, None])
+            if any_hit:
+                hit = ok.any(dim=1)
+                occluded[rays[hit]] = True
+                finished[leaf[hit]] = True
+            else:
+                score = torch.where(ok, t, float("inf"))
+                win = torch.argmin(score, dim=1)  # lowest slot among ties
+                tmin = score.gather(1, win[:, None])[:, 0]
+                hit = tmin < tcur
+                hr = rays[hit]
+                wsel = win[hit, None]
+                t_best[hr] = tmin[hit]
+                prim[hr] = (first[hit] + win[hit]).to(i32)
+                hit_inst[hr] = ins[leaf[hit]]
+                hit_u[hr] = u[hit].gather(1, wsel)[:, 0]
+                hit_v[hr] = v[hit].gather(1, wsel)[:, 0]
+
+        # ---- internal supernodes: push every hit child but the last,
+        # descend into the last
+        inner = ((nd >= 0) & (nd < S)).nonzero().squeeze(1)
+        if inner.numel():
+            nidx = nd[inner].long()
+            bx, cd, cn = boxes[nidx], codes[nidx], cnts[nidx]
+            iox, ioy, ioz = ox[inner], oy[inner], oz[inner]
+            iix, iiy, iiz = _safe_inv(dx[inner]), _safe_inv(dy[inner]), _safe_inv(dz[inner])
+            rays = act[inner]
+            tb = t_best[rays]
+            cur_inst = ins[inner]
+            in_tlas = cur_inst < 0
+            next_code = torch.full_like(cur_inst, -1)
+            next_inst = cur_inst.clone()
+            spi = s[inner]
+            for c in range(ARITY):
+                code, cnt = cd[:, c], cn[:, c]
+                tx0 = (bx[:, c, 0] - iox) * iix
+                tx1 = (bx[:, c, 3] - iox) * iix
+                ty0 = (bx[:, c, 1] - ioy) * iiy
+                ty1 = (bx[:, c, 4] - ioy) * iiy
+                tz0 = (bx[:, c, 2] - ioz) * iiz
+                tz1 = (bx[:, c, 5] - ioz) * iiz
+                tn = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                                 torch.minimum(ty0, ty1)),
+                                   torch.minimum(tz0, tz1))
+                tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                                 torch.maximum(ty0, ty1)),
+                                   torch.maximum(tz0, tz1))
+                hitc = ((tn <= tf) & (tf > T_MIN) & (tn < tb)
+                        & ~((code < 0) & (cnt == 0)))
+                payload = -code - 1
+                leaf_child = code < 0
+                iid = torch.clamp(payload, 0, max(n_inst - 1, 0)).long()
+                tlas_entry = ps.roots[iid]
+                blas_entry = -(payload + torch.clamp(cnt - 1, max=TREELET - 1)) - 2
+                e_code = torch.where(leaf_child,
+                                     torch.where(in_tlas, tlas_entry, blas_entry), code)
+                e_inst = torch.where(leaf_child & in_tlas, payload, cur_inst)
+                push = hitc & (next_code != -1)
+                if bool(push.any()):
+                    slot = torch.clamp(spi[push], max=STACK_DEPTH - 1)
+                    stack[rays[push], slot, 0] = next_code[push]
+                    stack[rays[push], slot, 1] = next_inst[push]
+                spi = torch.where(push, torch.clamp(spi + 1, max=STACK_DEPTH), spi)
+                next_code = torch.where(hitc, e_code, next_code)
+                next_inst = torch.where(hitc, e_inst, next_inst)
+            new_node[inner] = next_code
+            new_inst[inner] = next_inst
+            s[inner] = spi
+
+        node[act] = new_node
+        inst[act] = new_inst
+        sp[act] = s
+        if any_hit and bool(finished.any()):
+            act = act[~finished]
+
+    if any_hit:
+        return occluded
+    return Hit(t_best, prim, hit_inst, hit_u, hit_v)
+
+
+def closest_hit_plain(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX) -> Hit:
+    """Plain torch closest hit (any device)."""
+    return _plain_walk(ps, ray_o, ray_d, t_limit, any_hit=False)
+
+
+def occluded_plain(ps: PreparedScene, ray_o, ray_d, t_limit) -> torch.Tensor:
+    """Plain torch occlusion: True where geometry lies in (T_MIN, t_limit)."""
+    return _plain_walk(ps, ray_o, ray_d, t_limit, any_hit=True)
+
+
+# ---------------------------------------------------------------- CUDA path
+def _check_rays(ps: PreparedScene, ray_o, ray_d) -> None:
+    for name, a in (("ray_o", ray_o), ("ray_d", ray_d)):
+        if a.dtype != torch.float32 or a.dim() != 2 or a.shape[1] != 3:
+            raise ValueError(f"{name}: expected (R,3) float32, got "
+                             f"{tuple(a.shape)} {a.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if ray_o.shape != ray_d.shape:
+        raise ValueError("ray_o and ray_d differ in shape")
+    dev = ray_o.device
+    for name, a, dt in (("nodes", ps.nodes, torch.int32),
+                        ("tris", ps.tris, torch.float32),
+                        ("insts", ps.insts, torch.float32),
+                        ("roots", ps.roots, torch.int32)):
+        if a.device != dev or a.dtype != dt or not a.is_contiguous():
+            raise ValueError(f"prepared scene {name} must be a contiguous "
+                             f"{dt} tensor on {dev}")
+    if ray_d.device != dev:
+        raise ValueError("ray_o and ray_d are on different devices")
+
+
+def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
+    from rfw_tpu_torch.ops._build import load_library
+
+    if ray_o.device.type != "cuda":
+        raise ValueError(f"traversal runs on the CPU or a CUDA device, "
+                         f"not {ray_o.device}")
+    _check_rays(ps, ray_o, ray_d)
+    lib = load_library()
+    R = ray_o.shape[0]
+    dev = ray_o.device
+    tl = _t_limit(t_limit, R, dev)
+    f32 = torch.float32
+    if any_hit:
+        outs = (torch.empty(R, dtype=torch.bool, device=dev),)
+        t = prim = inst = u = v = None
+        occ = outs[0]
+    else:
+        t = torch.empty(R, dtype=f32, device=dev)
+        prim = torch.empty(R, dtype=torch.int32, device=dev)
+        inst = torch.empty(R, dtype=torch.int32, device=dev)
+        u = torch.empty(R, dtype=f32, device=dev)
+        v = torch.empty(R, dtype=f32, device=dev)
+        occ = None
+    if R == 0:
+        return occ if any_hit else Hit(t, prim, inst, u, v)
+
+    def ptr(x):
+        return ctypes.c_void_p(x.data_ptr()) if x is not None else None
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.rfw_traverse(
+            int(any_hit),
+            ptr(ps.nodes), ps.nodes.shape[0],
+            ptr(ps.tris), ps.tris.shape[0],
+            ptr(ps.insts), ps.n_inst,
+            ptr(ps.roots), ps.tlas_root,
+            ptr(ray_o), ptr(ray_d), ptr(tl), R,
+            ptr(t), ptr(prim), ptr(inst), ptr(u), ptr(v), ptr(occ),
+            ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"traverse kernel launch failed: cudaError {rc}")
+    LAUNCHES["occluded" if any_hit else "closest"] += 1
+    return occ if any_hit else Hit(t, prim, inst, u, v)
+
+
+def closest_hit(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX) -> Hit:
+    """Closest hit of (R,3) rays: the CUDA kernel for tensors on the card,
+    the plain version for tensors on the CPU."""
+    if ray_o.device.type == "cpu":
+        return closest_hit_plain(ps, ray_o, ray_d, t_limit)
+    return _launch(ps, ray_o, ray_d, t_limit, any_hit=False)
+
+
+def occluded(ps: PreparedScene, ray_o, ray_d, t_limit) -> torch.Tensor:
+    """Occlusion of (R,3) rays within (T_MIN, t_limit): the CUDA kernel for
+    tensors on the card, the plain version for tensors on the CPU."""
+    if ray_o.device.type == "cpu":
+        return occluded_plain(ps, ray_o, ray_d, t_limit)
+    return _launch(ps, ray_o, ray_d, t_limit, any_hit=True)
