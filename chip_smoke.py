@@ -2,37 +2,66 @@
 
     python3 chip_smoke.py
 
-Drives rfw_tpu_torch's main path — one progressive path-traced sample per
+Drives rfw_tpu_torch's main paths — one progressive path-traced sample per
 call of `render_sample`, 1920x1080, 1 bounce + next-event estimation, Sobol
 sampler, film accumulation and tonemap — on a procedural scene at the
 flagship scene's scale (4 icosphere meshes of 20,480 triangles, 256
-instances, textured floor, area + spot + sun lights; made from a seed).
+instances, textured floor, area + spot + sun lights; made from a seed),
+with two_phase="off" (every ray through the classic kernel) and with the
+default two_phase="auto" (bounce rays through the two-phase path), and on
+an instance-heavy scene of 10,000 instances.
 
 Phases (any failed check raises, so the script exits nonzero):
-  1. set-up: needs CUDA; builds the CUDA kernels from rfw_tpu_torch/csrc;
+  1. set-up: needs CUDA; builds the CUDA kernels from rfw_tpu_torch/csrc,
+     one nvcc per source, all at once;
   2. scene build and upload;
-  3. each kernel against its plain torch version on 65,536 rays;
+  3. K1/K2 against their plain torch version on 65,536 rays;
   4. a 256x144 render through the kernels against the same render through
      the plain traversal (traversal="lockstep");
-  5. the main path at 1920x1080: a warm-up sample whose traversal inputs
-     are captured, each kernel against its plain version on exactly those
-     inputs (with both times), then 8 timed samples with the kernels'
-     launch counters reset just before them;
+  5. the main path at 1920x1080 with two_phase="off": a warm-up sample
+     whose traversal inputs are captured, each kernel against its plain
+     version on exactly those inputs (with both times), then 8 timed
+     samples with the kernels' launch counters reset just before them;
   6. where the time goes: one sample with every stage bracketed by
      torch.cuda.synchronize(), one profiled sample (device time by
-     kernel), and 4 samples traced with device activity only (the share
-     of their span the device spent busy).
+     kernel), and 4 samples traced with device activity only;
+  7. two-phase on the flagship scene at 1920x1080 (its 512 instance-arena
+     rows take the dense phase-A scan): the bounce rays of one sample
+     captured (with RFW_TP_SHADOW=1, so the bounce shadow rays too), K3 and
+     K5 against their plain versions on exactly those items, the whole
+     two-phase call against the classic kernel, its stages, K4 against its
+     plain version on the same rays and the stages with phase A by K4
+     (the dense-scan gate forced to 0), then the A/B in turns (the
+     variants in order, then in reverse): classic K1 against the
+     two-phase call with either phase A on the captured bounce rays, and
+     ms per sample of two_phase="off" against "auto" (dense scan, then
+     K4); the first "auto" turn is the counted run of the two-phase main
+     path (launch counters reset just before it, read just after it);
+  8. an instance-heavy scene at 1920x1080 (10,000 instances: 20,480-
+     triangle spheres among small icospheres and cubes; its arena is far
+     over 512 rows, so phase A is the K4 tree walk): with RFW_DENSE_ITEMS=1
+     and RFW_TP_SHADOW=1, K4, K3, K5 and K6 (closest and any hit) against
+     their plain versions on one sample's captured inputs and the stages
+     of the two-phase call; then the A/B in turns: classic K1 against the
+     two-phase call with and without K6 on the captured bounce rays, and
+     ms per sample of "off", "auto", and "auto" with both switches set,
+     whose first turn is the counted run (every kernel must launch).
 Every number is printed beside the card's name and power limit. The line
-before the last two is {"kernels": [...]}: per kernel, its launches in the
-timed samples, its largest disagreement with the plain version, and its
+before the last two is {"kernels": [...]}: per kernel, its launches in its
+path's counted run, its largest disagreement with the plain version, its
 time and the plain version's per 1080p sample (the sum over the sample's
-calls, each timed on that call's captured inputs). The last line is
-{"ok": true, "device": {...}}.
+calls, each timed on that call's captured inputs), the least time the card
+could take for the same work (bytes over 3.35 TB/s or fp32 operations over
+67 TFLOP/s, whichever is larger) and which of the two bounds it; no single
+PyTorch call computes a BVH traversal, so library_ms is null. The last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -47,6 +76,17 @@ W, H = 1920, 1080
 SPP = 8
 BOUNCES = 1
 N_CMP = 65536
+N_HEAVY = 10000  # instances of the phase-8 scene
+HEAVY_SPP = 3
+
+# the card's peaks for the bound (NVIDIA H100 SXM data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# fp32 operations per unit of work, counted from csrc/bvh_common.cuh: one
+# child slab test (6 sub, 6 mul, 10 min/max, 3 compares) and one Woop slot
+# test (6 dot products of 5, 3 adds, 1 div, 2 mul + 2 add, 6 compares)
+FLOP_PER_BOX = 25
+FLOP_PER_TRI = 44
 
 
 def card_line() -> str:
@@ -147,6 +187,93 @@ def build_scene(seed: int):
     return scene, mats.to_device(), lights, atlas, camera, pack_s
 
 
+def build_heavy_scene(seed: int, n_inst: int):
+    """An instance-heavy scene: n_inst instances on a square field, a mix
+    of 20,480-triangle spheres (their BLAS walk) and small meshes whose
+    treelet span is at most 64 (icospheres of quality 1 and 2, cubes: the
+    dense items tier), a floor, an area lamp and a sun; packed by the
+    port's own packers."""
+    from rfw_tpu_torch.backend.lights import (
+        DirectionalLightsView, PointLightsView, SpotLightsView,
+    )
+    from rfw_tpu_torch.mathx import compose_trs, quat_identity
+    from rfw_tpu_torch.models import cube, quad3d, sphere
+    from rfw_tpu_torch.render.atlas import pack_atlas
+    from rfw_tpu_torch.render.lights_pack import pack_lights
+    from rfw_tpu_torch.render.pack import pack_trace_scene
+    from rfw_tpu_torch.scene import Camera3D, Material, Materials, extract_area_lights
+
+    rng = np.random.default_rng(seed)
+    mats = Materials()
+    m_floor = mats.push(Material(name="floor", color=np.array([0.6, 0.6, 0.6, 1], np.float32),
+                                 roughness=0.8))
+    kinds = [(sphere(quality=5, material_id=mats.push(Material(
+                 name="metal", color=np.array([0.9, 0.7, 0.4, 1], np.float32),
+                 metallic=1.0, roughness=0.3))), 0.15),
+             (sphere(quality=2, material_id=mats.push(Material(
+                 name="red", color=np.array([0.7, 0.2, 0.15, 1], np.float32),
+                 roughness=0.7))), 0.35),
+             (sphere(quality=1, material_id=mats.push(Material(
+                 name="blue", color=np.array([0.15, 0.3, 0.8, 1], np.float32),
+                 roughness=0.5, clearcoat=1.0))), 0.25),
+             (cube(material_id=mats.push(Material(
+                 name="white", color=np.array([0.8, 0.8, 0.75, 1], np.float32),
+                 roughness=0.6))), 0.25)]
+    m_emit = mats.push(Material(name="emitter", color=np.array([9.0, 8.5, 7.5, 1], np.float32)))
+
+    side = int(np.ceil(np.sqrt(n_inst)))
+    spacing = 2.0
+    cells = rng.permutation(side * side)[:n_inst]
+    kind_of = rng.choice(len(kinds), n_inst, p=[p for _, p in kinds])
+    meshes, instances = [], []
+    for k, (mesh, _) in enumerate(kinds):
+        sel = cells[kind_of == k]
+        r = rng.uniform(0.3, 0.8, sel.shape[0]).astype(np.float32)
+        t = np.stack([(sel % side - side / 2) * spacing + rng.uniform(-0.4, 0.4, sel.shape[0]),
+                      r, (sel // side - side / 2) * spacing
+                      + rng.uniform(-0.4, 0.4, sel.shape[0])], 1).astype(np.float32)
+        meshes.append((k, mesh, None))
+        instances.append((k, np.stack([compose_trs(t[i], quat_identity(), np.full(3, r[i], np.float32))
+                                       for i in range(sel.shape[0])])))
+    half = side * spacing / 2 + 2.0
+    meshes.append((4, cube(position=(0.0, -0.1, 0.0), size=(2 * half, 0.2, 2 * half),
+                           material_id=m_floor), None))
+    instances.append((4, np.eye(4, dtype=np.float32)[None]))
+    lamp = quad3d(normal=(0.0, -1.0, 0.0), position=(0.0, 30.0, 0.0), width=30.0, height=30.0,
+                  material_id=m_emit)
+    flags, emission = mats.light_flags(), mats.emission_table()
+    area, light_id = extract_area_lights(
+        flags[lamp.tri_material], emission[lamp.tri_material], lamp.tri_vertices(),
+        np.eye(4, dtype=np.float32)[None], 5, np.array([n_inst + 1]))
+    lamp.tri_light[:] = light_id
+    meshes.append((5, lamp, None))
+    instances.append((5, np.eye(4, dtype=np.float32)[None]))
+    scene = pack_trace_scene(meshes, instances)
+    sun = DirectionalLightsView(
+        direction=np.array([[0.3, -0.8, 0.4]], np.float32),
+        energy=np.array([[3.0, 2.9, 2.6]], np.float32), changed=np.ones(1, bool))
+    lights = pack_lights(PointLightsView.empty(), SpotLightsView.empty(), sun, area)
+    camera = Camera3D(fov=60).look_at(np.array([half * 0.9, half * 0.55, half * 0.9], np.float32),
+                                      np.array([0.0, 0.0, 0.0], np.float32))
+    atlas = pack_atlas([t for _, t in mats.textures])
+    return scene, mats.to_device(), lights, atlas, camera
+
+
+@contextmanager
+def env(**kv):
+    """Set environment variables for the duration of the block."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds of fn() over `reps` runs (CUDA events)."""
     fn()
@@ -171,13 +298,17 @@ def timed(fn):
     return out, start.elapsed_time(stop)
 
 
-def check_hits(card, label, kh, ph) -> float:
-    """Hold a kernel closest-hit result against the plain one: hit masks
-    agree on >= 99.99% of rays; where both hit, t to 1e-5 relative, the
+def check_hits(card, label, kh, ph, name="K1 closest_hit kernel vs plain", exact=True,
+               live=None) -> float:
+    """Hold a closest-hit result against a reference: with `exact` (a
+    kernel against its plain version), every output bit-identical;
+    otherwise hit masks agree on >= 99.99% of the live rows (all rows, or
+    those of the mask `live`), and where both hit, t to 1e-5 relative, the
     same (prim, inst) unless t ties within 1e-6, and u/v to 1e-4. Returns
     the largest |t| difference where both hit."""
     km, pm = kh.prim >= 0, ph.prim >= 0
-    mask_agree = (km == pm).float().mean().item()
+    agree = (km == pm) if live is None else (km == pm)[live]
+    mask_agree = agree.float().mean().item() if agree.numel() else 1.0
     both = km & pm
     t_rel = ((kh.t - ph.t).abs() / ph.t.abs().clamp(min=1e-30))[both]
     t_abs = (kh.t - ph.t).abs()[both]
@@ -187,26 +318,48 @@ def check_hits(card, label, kh, ph) -> float:
     bad_id = (both & ~same & ~tie).sum().item()
     uv_err = torch.maximum((kh.u - ph.u).abs(), (kh.v - ph.v).abs())[same]
     t_err = t_abs.max().item() if t_abs.numel() else 0.0
-    log(card, f"K1 closest_hit kernel vs plain, {label}: hit-mask agreement "
+    identical = all(torch.equal(a, b) for a, b in zip(kh, ph))
+    log(card, f"{name}, {label}: hit-mask agreement "
               f"{mask_agree:.6f}, hits {int(both.sum())}, max t rel err "
               f"{t_rel.max().item() if t_rel.numel() else 0.0:.3e}, max t abs err {t_err:.3e}, "
               f"prim/inst differ (not a t tie) {bad_id}, t ties {int(tie.sum())}, "
-              f"max u/v err {uv_err.max().item() if uv_err.numel() else 0.0:.3e}")
-    assert mask_agree >= 0.9999, f"K1 ({label}): hit masks agree on only {mask_agree}"
-    assert t_rel.numel() == 0 or t_rel.max().item() <= 1e-5, f"K1 ({label}): t differs by more than 1e-5"
-    assert bad_id == 0, f"K1 ({label}): {bad_id} rays hit another triangle at another t"
-    assert uv_err.numel() == 0 or uv_err.max().item() <= 1e-4, f"K1 ({label}): u/v differ"
+              f"max u/v err {uv_err.max().item() if uv_err.numel() else 0.0:.3e}, "
+              f"bit-identical {identical}")
+    assert identical or not exact, f"{name} ({label}): not bit-identical"
+    assert mask_agree >= 0.9999, f"{name} ({label}): hit masks agree on only {mask_agree}"
+    assert t_rel.numel() == 0 or t_rel.max().item() <= 1e-5, f"{name} ({label}): t differs by more than 1e-5"
+    assert bad_id == 0, f"{name} ({label}): {bad_id} rays hit another triangle at another t"
+    assert uv_err.numel() == 0 or uv_err.max().item() <= 1e-4, f"{name} ({label}): u/v differ"
     return t_err
 
 
-def check_occluded(card, label, ko, po) -> float:
-    """Hold a kernel occlusion result against the plain one: the flags
-    agree on >= 99.99% of rays. Returns the largest flag difference."""
-    occ_agree = (ko == po).float().mean().item()
-    log(card, f"K2 occluded kernel vs plain, {label}: flag agreement {occ_agree:.6f}, "
-              f"occluded {int(po.sum())}")
-    assert occ_agree >= 0.9999, f"K2 ({label}): occlusion agrees on only {occ_agree}"
+def check_occluded(card, label, ko, po, name="K2 occluded kernel vs plain", exact=True,
+                   live=None) -> float:
+    """Hold an occlusion result against a reference: with `exact`, every
+    flag equal; otherwise the flags agree on >= 99.99% of the live rows
+    (all rows, or those of the mask `live`). Returns the largest flag
+    difference."""
+    agree = (ko == po) if live is None else (ko == po)[live]
+    occ_agree = agree.float().mean().item() if agree.numel() else 1.0
+    identical = torch.equal(ko, po)
+    log(card, f"{name}, {label}: flag agreement {occ_agree:.6f}, "
+              f"occluded {int(po.sum())}, identical {identical}")
+    assert identical or not exact, f"{name} ({label}): flags not identical"
+    assert occ_agree >= 0.9999, f"{name} ({label}): occlusion agrees on only {occ_agree}"
     return float((ko.int() - po.int()).abs().max().item()) if ko.numel() else 0.0
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, stats: dict):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move n_bytes and do the fp32 operations of the counted box and slot
+    tests, at its published peaks."""
+    flops = FLOP_PER_BOX * stats.get("boxes", 0) + FLOP_PER_TRI * stats.get("tris", 0)
+    b_ms, f_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
 
 
 def compare_rays(card, ps, view, dev, seed):
@@ -251,13 +404,15 @@ def compare_rays(card, ps, view, dev, seed):
 
 @contextmanager
 def patched(module, **fns):
-    """Replace module-level functions for the duration of the block."""
+    """Replace module-level names for the duration of the block."""
     old = {k: getattr(module, k) for k in fns}
     for k, f in fns.items():
         setattr(module, k, f)
-    yield
-    for k, f in old.items():
-        setattr(module, k, f)
+    try:
+        yield
+    finally:
+        for k, f in old.items():
+            setattr(module, k, f)
 
 
 def capture_traversal(run):
@@ -286,7 +441,9 @@ def capture_traversal(run):
 def compare_main_path(card, calls):
     """Each kernel against its plain version on the captured inputs of one
     1080p sample; kernel time by CUDA events over 10 launches, plain time
-    of the one compared call. Returns per-kernel call rows."""
+    of the one compared call, and the bound from the call's bytes (rays in
+    and out, the scene arrays once) and the plain walk's box and slot test
+    counts. Returns per-kernel call rows."""
     from rfw_tpu_torch.ops import traverse as tr
 
     rows = defaultdict(list)
@@ -294,19 +451,202 @@ def compare_main_path(card, calls):
         n = o.shape[0]
         tl_t = tl if isinstance(tl, torch.Tensor) else torch.full((n,), tl, device=o.device)
         live = int((tl_t > 0).sum())
+        stats = {}
+        scene_b = nbytes(ps.nodes, ps.tris, ps.insts, ps.roots)
         if kind == "closest":
-            ph, plain_ms = timed(lambda: tr.closest_hit_plain(ps, o, d, tl))
+            ph, plain_ms = timed(lambda: tr.closest_hit_plain(ps, o, d, tl, stats=stats))
             err = check_hits(card, f"{label}, {n} rays", tr.closest_hit(ps, o, d, tl), ph)
             ms = cuda_ms(lambda: tr.closest_hit(ps, o, d, tl), 10)
+            b_ms, by = bound(n * (28 + 20) + scene_b, stats)
         else:
-            po, plain_ms = timed(lambda: tr.occluded_plain(ps, o, d, tl))
+            po, plain_ms = timed(lambda: tr.occluded_plain(ps, o, d, tl, stats=stats))
             err = check_occluded(card, f"{label}, {n} rays", tr.occluded(ps, o, d, tl), po)
             ms = cuda_ms(lambda: tr.occluded(ps, o, d, tl), 10)
+            b_ms, by = bound(n * (28 + 1) + scene_b, stats)
         log(card, f"{'K1' if kind == 'closest' else 'K2'} {label}: {n} rays ({live} live), "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({by}; "
+                  f"{stats.get('boxes', 0)} box tests, {stats.get('tris', 0)} slot tests)")
         rows[kind].append(dict(call=label, rays=n, live=live, ms=ms, plain_ms=plain_ms,
-                               max_abs_err=err))
+                               bound_ms=b_ms, bound_by=by, max_abs_err=err))
     return rows
+
+
+def capture_twophase(run):
+    """Run `run()` with render_sample's two-phase calls recorded: returns
+    [(kind, prepared scene, ray_o, ray_d, t_limit)]; the calls still run."""
+    from rfw_tpu_torch.render import wavefront as wf
+
+    calls = []
+
+    def recorder(kind, fn):
+        def record(ps, ray_o, ray_d, t_limit, **kw):
+            calls.append((kind, ps, ray_o.clone(), ray_d.clone(), t_limit.clone()))
+            return fn(ps, ray_o, ray_d, t_limit, **kw)
+        return record
+
+    with patched(wf, twophase_closest_with_fallback=recorder(
+            "closest", wf.twophase_closest_with_fallback),
+            twophase_occluded_with_fallback=recorder(
+            "occluded", wf.twophase_occluded_with_fallback)):
+        run()
+    return calls
+
+
+def packed_items(ps, o, d, tl, K, items_per_ray):
+    """Phase A and the pack of one two-phase call, as phase B gets them:
+    (entries, slot_inst, o_s, d_s, tl_s, dense-tier mask)."""
+    from rfw_tpu_torch.accel.bvh_cpu import TREELET
+    from rfw_tpu_torch.ops import traverse_items as ti
+
+    ents, _, _, slot_inst, o_s, d_s, tl_s = ti._pack(ps, o, d, tl, K, items_per_ray)
+    iid = slot_inst.clamp(0, max(ps.n_inst - 1, 0)).long()
+    nt = ps.thi[iid] - ps.tlo[iid]
+    dense_k = (slot_inst >= 0) & (nt > 0) & (nt <= ti.DENSE_MAX_TRIS // TREELET)
+    return ents, slot_inst, o_s, d_s, tl_s, dense_k
+
+
+def compare_items(card, name, label, dense, any_hit, ps, inst, o, d, tl):
+    """One phase-B kernel against its plain version on packed items (every
+    output bit-identical); kernel time by CUDA events over 10 launches,
+    plain time of the compared call, and the bound from the bytes the
+    kernel touches (a live item reads its instance, o, d and t_limit, 32 B;
+    an empty slot reads its instance, and its t_limit for closest hits;
+    every slot writes 20 B of hit or 1 B of flag), the scene arrays it
+    reads once, and the plain version's test counts."""
+    from rfw_tpu_torch.ops import traverse_items as ti
+
+    fn, plain = (ti.dense_items, ti.dense_items_plain) if dense else (ti.items, ti.items_plain)
+    stats = {}
+    ref, plain_ms = timed(lambda: plain(ps, inst, o, d, tl, any_hit, stats=stats))
+    got = fn(ps, inst, o, d, tl, any_hit)
+    live_k = inst >= 0
+    n, live = inst.shape[0], int(live_k.sum())
+    if any_hit:
+        err = check_occluded(card, label, got, ref, name=f"{name} kernel vs plain", live=live_k)
+    else:
+        err = check_hits(card, label, got, ref, name=f"{name} kernel vs plain", live=live_k)
+    ms = cuda_ms(lambda: fn(ps, inst, o, d, tl, any_hit), 10)
+    if dense:
+        # the treelets of the meshes the items test, the instance rows
+        iid = inst[inst >= 0].long()
+        spans = torch.unique(torch.stack([ps.tlo[iid], ps.thi[iid]], 1), dim=0)
+        scene_b = int((spans[:, 1] - spans[:, 0]).sum()) * 64 * 64 + nbytes(ps.insts, ps.tlo, ps.thi)
+    else:
+        scene_b = nbytes(ps.nodes, ps.tris, ps.insts, ps.roots)
+    out_b = 1 if any_hit else 20
+    item_b = live * (32 + out_b) + (n - live) * ((4 if any_hit else 8) + out_b)
+    b_ms, by = bound(item_b + scene_b, stats)
+    log(card, f"{name} {label}: {n} item slots ({live} items), kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({by}; {item_b} B of items, {scene_b} B "
+              f"of scene, {stats.get('boxes', 0)} box tests, {stats.get('tris', 0)} slot tests)")
+    return dict(call=label, items=live, slots=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, max_abs_err=err)
+
+
+def compare_entries(card, label, ps, o, d, tl, K):
+    """K4 against its plain version on captured rays (t and ids
+    bit-identical)."""
+    from rfw_tpu_torch.ops import traverse_entries as te
+
+    stats = {}
+    ref, plain_ms = timed(lambda: te.tlas_entries_plain(ps, o, d, tl, K, stats=stats))
+    got = te.tlas_entries(ps, o, d, tl, K)
+    fin = torch.isfinite(ref.t_entry)
+    same_t = torch.equal(torch.isfinite(got.t_entry), fin)
+    err = (got.t_entry - ref.t_entry).abs()[fin & torch.isfinite(got.t_entry)]
+    err = err.max().item() if err.numel() else 0.0
+    id_agree = (got.inst == ref.inst)[fin].float().mean().item() if fin.any() else 1.0
+    identical = torch.equal(got.t_entry, ref.t_entry) and torch.equal(got.inst, ref.inst)
+    log(card, f"K4 tlas_entries kernel vs plain, {label}: {o.shape[0]} rays, K={K}, entries "
+              f"{int(fin.sum())}, finite masks equal {same_t}, max t abs err {err:.3e}, "
+              f"id agreement over the entries {id_agree:.6f}, identical {identical}")
+    assert identical, f"K4 ({label}): entries not bit-identical"
+    ms = cuda_ms(lambda: te.tlas_entries(ps, o, d, tl, K), 10)
+    n = o.shape[0]
+    tlas_b = (ps.nodes.shape[0] - ps.tlas_root) * ps.nodes.shape[1] * 4
+    b_ms, by = bound(n * (28 + 8 * K) + tlas_b, stats)
+    log(card, f"K4 {label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
+              f"({by}; {stats.get('boxes', 0)} box tests)")
+    return dict(call=label, rays=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                max_abs_err=err)
+
+
+def twophase_stages(card, label, ps, o, d, tl, cfg):
+    """One two-phase call with its stages bracketed by synchronize():
+    phase A, pack, phase B kernels, merge, fallback; and the fallback's
+    ray count."""
+    from rfw_tpu_torch.ops import traverse_items as ti
+
+    clock = StageClock()
+    fallback = []
+
+    def count_fallback(ps_, o_, *a):
+        fallback.append(o_.shape[0])
+        return ti_closest(ps_, o_, *a)
+
+    ti_closest = ti.closest_hit
+    stages = dict(_phase_a="phase A", _pack="pack (compaction, instance sort, gather)",
+                  items="phase B: K3 items", dense_items="phase B: K6 dense items",
+                  _merge_closest="merge (scatter-min)")
+    with patched(ti, **{f: clock.wrap(n, getattr(ti, f)) for f, n in stages.items()},
+                 closest_hit=clock.wrap("fallback (K1 retrace)", count_fallback)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ti.twophase_closest_with_fallback(ps, o, d, tl, K=cfg.tp_K,
+                                          items_per_ray=cfg.tp_items_per_ray)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    rest = total - sum(clock.ms.values())
+    _, trunc = ti.twophase_closest_fused(ps, o, d, tl, K=cfg.tp_K,
+                                         items_per_ray=cfg.tp_items_per_ray)
+    log(card, f"two-phase call stages, {label}: {total:.2f} ms in all; truncated rays "
+              f"{int(trunc.sum())}, retraced by the fallback {sum(fallback)}")
+    for name, ms in sorted([*clock.ms.items(), ("other (ray gathers, flags, glue)", rest)],
+                           key=lambda kv: -kv[1]):
+        log(card, f"  {ms:9.3f} ms  {100 * ms / total:5.1f}%  {name}")
+
+
+def twophase_vs_classic(card, label, ps, o, d, tl, cfg, occluded_too=None):
+    """The whole two-phase call against the classic kernel on the same
+    rays (exact contract, up to rays past the fallback's capacity)."""
+    from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.ops import traverse_items as ti
+
+    kw = dict(K=cfg.tp_K, items_per_ray=cfg.tp_items_per_ray)
+    _, trunc = ti.twophase_closest_fused(ps, o, d, tl, **kw)
+    within = int(trunc.sum()) <= ti.fallback_capacity(o.shape[0])
+    tp = ti.twophase_closest_with_fallback(ps, o, d, tl, **kw)
+    ref = tr.closest_hit(ps, o, d, tl)
+    hm, rm = tp.prim >= 0, ref.prim >= 0
+    live = tl > 0
+    log(card, f"two-phase call vs K1, {label}: {o.shape[0]} rays, truncated {int(trunc.sum())} "
+              f"(all retraced: {within}), hit-mask agreement over the live rays "
+              f"{(hm == rm)[live].float().mean().item():.6f}")
+    if within:
+        check_hits(card, label, tp, ref, name="two-phase call vs K1", exact=False, live=live)
+    if occluded_too is not None:
+        so, sd, stl = occluded_too
+        occ = ti.twophase_occluded_with_fallback(ps, so, sd, stl, **kw)
+        check_occluded(card, label, occ, tr.occluded(ps, so, sd, stl),
+                       name="two-phase any-hit call vs K2", exact=False, live=stl > 0)
+
+
+def reset_launches():
+    from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.ops import traverse_entries as te
+    from rfw_tpu_torch.ops import traverse_items as ti
+
+    for counts in (tr.LAUNCHES, te.LAUNCHES, ti.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches() -> dict:
+    from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.ops import traverse_entries as te
+    from rfw_tpu_torch.ops import traverse_items as ti
+
+    return {**tr.LAUNCHES, **te.LAUNCHES, **ti.LAUNCHES}
 
 
 class StageClock:
@@ -422,6 +762,176 @@ def busy_share(card, run, n: int):
               f"(union of {len(spans)} device events)")
 
 
+def ab_calls(card, label, variants):
+    """ms per call of each (name, fn) variant by CUDA events over 5 runs, in
+    turns: the variants in order, then in reverse."""
+    turns = [(name, cuda_ms(fn, 5)) for name, fn in [*variants, *variants[::-1]]]
+    log(card, f"A/B on {label} (ms per call, in turns): "
+              + ", ".join(f"{name} {ms:.4f}" for name, ms in turns))
+
+
+def ab_samples(card, dev, label, variants, sample, counted, n=3):
+    """ms per 1080p sample of each (name, config, context) variant on the
+    host clock, n samples a turn after one warm-up, in turns: the variants
+    in order, then in reverse. The first turn of variant `counted` is its
+    path's counted run: the launch counters and the peak memory are reset
+    just before it and read just after. Returns (launches, peak bytes, the
+    summed radiance of that run)."""
+    out = None
+    turns = []
+    for i, (name, cfg, ctx) in enumerate([*variants, *variants[::-1]]):
+        with ctx():
+            sample(cfg, 1000 + 10 * i)  # warm-up of this turn
+            torch.cuda.synchronize()
+            count = name == counted and out is None
+            if count:
+                reset_launches()
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            acc = sum(sample(cfg, 1001 + 10 * i + k).radiance for k in range(n))
+            torch.cuda.synchronize()
+            turns.append((name, (time.perf_counter() - t0) / n * 1e3))
+            if count:
+                out = read_launches(), torch.cuda.max_memory_allocated(dev), acc
+    log(card, f"A/B ms per 1080p sample, {label} (host clock, {n} samples a turn, in turns): "
+              + ", ".join(f"{name} {ms:.2f}" for name, ms in turns))
+    launches, peak, acc = out
+    log(card, f"{label}, counted run of {counted} ({n} samples): launches {launches}, peak "
+              f"memory {peak / 2**30:.3f} GiB ({peak} B)")
+    assert bool(torch.isfinite(acc).all()), f"non-finite radiance ({label}, {counted})"
+    assert acc.mean().item() > 0.0, f"black film ({label}, {counted})"
+    return launches, peak, acc
+
+
+def phase7(card, dev, scene, mats, atlas, lights, view, ps, base):
+    """Two-phase on the flagship scene at 1920x1080: K3/K5 against their
+    plain versions on one sample's captured bounce items, the two-phase
+    call against the classic kernel and by stage, and the A/B in turns,
+    with phase A by the dense scan (the default at 512 arena rows) and by
+    K4 (the gate forced to 0)."""
+    from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.ops import traverse_items as ti
+    from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
+
+    cfg = RenderConfig(**{**base, "two_phase": "auto"})
+    cfg_off = RenderConfig(**base)
+
+    def sample(c, s):
+        return render_sample(scene, mats, atlas, lights, view, W, H, c, sample_index=s)
+
+    with env(RFW_TP_SHADOW="1"):
+        calls = capture_twophase(lambda: sample(cfg, 100))
+    kinds = [c[0] for c in calls]
+    assert kinds == ["closest", "occluded"], f"two-phase calls seen: {kinds}"
+    (_, _, o, d, tl), (_, _, so, sd, stl) = calls
+    log(card, f"phase 7: captured {o.shape[0]} bounce rays ({int((tl > 0).sum())} live) and "
+              f"{so.shape[0]} bounce shadow rays ({int((stl > 0).sum())} live); instance arena "
+              f"{ps.inst_min.shape[0]} rows -> phase A by "
+              f"{'the dense scan' if ps.inst_min.shape[0] <= ti.DENSE_A_MAX_INST else 'K4'}")
+    _, inst, o_s, d_s, tl_s, _ = packed_items(ps, o, d, tl, cfg.tp_K, cfg.tp_items_per_ray)
+    k3 = compare_items(card, "K3", "bounce closest items", False, False, ps, inst, o_s, d_s, tl_s)
+    _, inst, o_s, d_s, tl_s, _ = packed_items(ps, so, sd, stl, cfg.tp_K, cfg.tp_items_per_ray)
+    k5 = compare_items(card, "K5", "bounce shadow items", False, True, ps, inst, o_s, d_s, tl_s)
+    twophase_vs_classic(card, "flagship bounce rays", ps, o, d, tl, cfg, (so, sd, stl))
+    twophase_stages(card, "flagship bounce rays", ps, o, d, tl, cfg)
+    with patched(ti, DENSE_A_MAX_INST=0):
+        k4 = compare_entries(card, "flagship bounce rays", ps, o, d, tl, cfg.tp_K)
+        twophase_stages(card, "flagship bounce rays, phase A by K4", ps, o, d, tl, cfg)
+
+    kw = dict(K=cfg.tp_K, items_per_ray=cfg.tp_items_per_ray)
+
+    def tp_k4():
+        with patched(ti, DENSE_A_MAX_INST=0):
+            return ti.twophase_closest_with_fallback(ps, o, d, tl, **kw)
+
+    ab_calls(card, "the captured flagship bounce rays", [
+        ("classic K1", lambda: tr.closest_hit(ps, o, d, tl)),
+        ("two-phase (dense phase A)", lambda: ti.twophase_closest_with_fallback(ps, o, d, tl, **kw)),
+        ("two-phase (K4 phase A)", tp_k4)])
+    launches, _, _ = ab_samples(card, dev, "flagship scene", [
+        ("off", cfg_off, env), ("auto", cfg, env),
+        ("auto, phase A by K4", cfg, lambda: patched(ti, DENSE_A_MAX_INST=0))],
+        sample, counted="auto")
+    for k in ("closest", "occluded", "items_closest"):
+        assert launches[k] > 0, f"the two-phase main path never launched {k}"
+    return dict(K3=[k3], K5=[k5], K4=[k4], launches=launches)
+
+
+def phase8(card, dev, base):
+    """The instance-heavy scene at 1920x1080 with the dense items tier and
+    two-phase bounce shadows: K4, K3, K5 and K6 against their plain
+    versions on one sample's captured inputs, the A/B in turns, and the
+    counted render."""
+    from rfw_tpu_torch.convert import from_numpy_scene
+    from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.ops import traverse_items as ti
+    from rfw_tpu_torch.render.wavefront import (
+        RenderConfig, mat_feature_mask, render_sample, tex_kinds_mask,
+    )
+
+    t0 = time.perf_counter()
+    scene_np, mats_np, lights_np, atlas_np, camera = build_heavy_scene(SEED + 1, N_HEAVY)
+    scene, mats, lights, atlas = from_numpy_scene(scene_np, mats_np, lights_np, atlas_np, dev)
+    ps = tr.prepare_scene(scene)
+    span = (ps.thi - ps.tlo)[: int((scene_np.inst_mesh >= 0).sum())]
+    log(card, f"phase 8 scene: {int((scene_np.inst_mesh >= 0).sum())} instances "
+              f"({ps.inst_min.shape[0]} arena rows), {scene_np.tri_v0.shape[0]} triangle rows, "
+              f"{int((span <= ti.DENSE_MAX_TRIS // 64).sum())} instances of dense-tier meshes, "
+              f"built and uploaded in {time.perf_counter() - t0:.2f} s")
+    assert ps.inst_min.shape[0] > ti.DENSE_A_MAX_INST
+    view = torch.from_numpy(camera.get_view(W, H).as_array()).to(dev)
+    cfg = RenderConfig(**{**base, "two_phase": "auto", "tex_mask": tex_kinds_mask(mats_np.tex),
+                          "mat_features": mat_feature_mask(mats_np),
+                          "has_area_lights": bool(lights_np.n_area[0] > 0)})
+    cfg_off = dataclasses.replace(cfg, two_phase="off")
+
+    def sample(c, s):
+        return render_sample(scene, mats, atlas, lights, view, W, H, c, sample_index=s)
+
+    def tiers():
+        return env(RFW_TP_SHADOW="1", RFW_DENSE_ITEMS="1")
+
+    with tiers():
+        calls = capture_twophase(lambda: sample(cfg, 0))
+        kinds = [c[0] for c in calls]
+        assert kinds == ["closest", "occluded"], f"two-phase calls seen: {kinds}"
+        (_, _, o, d, tl), (_, _, so, sd, stl) = calls
+        k4 = compare_entries(card, "heavy bounce rays", ps, o, d, tl, cfg.tp_K)
+        rows = dict(K3=[], K5=[], K6=[])
+        for label, (ro, rd, rtl), any_hit in (("bounce closest", (o, d, tl), False),
+                                              ("bounce shadow", (so, sd, stl), True)):
+            _, inst, o_s, d_s, tl_s, dense_k = packed_items(
+                ps, ro, rd, rtl, cfg.tp_K, cfg.tp_items_per_ray)
+            none = torch.full_like(inst, -1)
+            walk_i = torch.where(dense_k, none, inst).contiguous()
+            dense_i = torch.where(dense_k, inst, none).contiguous()
+            rows["K5" if any_hit else "K3"].append(compare_items(
+                card, "K5" if any_hit else "K3", f"heavy {label} items (walk tier)", False,
+                any_hit, ps, walk_i, o_s, d_s, tl_s))
+            rows["K6"].append(compare_items(
+                card, "K6", f"heavy {label} items (dense tier)", True, any_hit, ps, dense_i,
+                o_s, d_s, tl_s))
+        twophase_vs_classic(card, "heavy bounce rays", ps, o, d, tl, cfg, (so, sd, stl))
+        twophase_stages(card, "heavy bounce rays", ps, o, d, tl, cfg)
+
+    kw = dict(K=cfg.tp_K, items_per_ray=cfg.tp_items_per_ray)
+    ab_calls(card, "the captured heavy bounce rays", [
+        ("classic K1", lambda: tr.closest_hit(ps, o, d, tl)),
+        ("two-phase (K3 only)", lambda: ti.twophase_closest_with_fallback(
+            ps, o, d, tl, dense=False, **kw)),
+        ("two-phase (K3 + K6)", lambda: ti.twophase_closest_with_fallback(
+            ps, o, d, tl, dense=True, **kw))])
+    launches, _, acc = ab_samples(card, dev, "heavy scene", [
+        ("off", cfg_off, env), ("auto", cfg, env),
+        ("auto, RFW_TP_SHADOW=1 RFW_DENSE_ITEMS=1", cfg, tiers)],
+        sample, counted="auto, RFW_TP_SHADOW=1 RFW_DENSE_ITEMS=1", n=HEAVY_SPP)
+    log(card, f"phase 8 counted render: mean radiance {(acc / HEAVY_SPP).mean().item():.6f}")
+    for k in ("closest", "occluded", "entries", "items_closest", "items_occluded",
+              "dense_closest", "dense_occluded"):
+        assert launches[k] > 0, f"the phase-8 path never launched {k}"
+    return dict(K4=[k4], launches=launches, **rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -438,12 +948,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build()
-    _build.load_library()
-    log(card, f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc {built.seconds:.2f} s) "
-              f"-> {built.path.name}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(card, "ptxas: " + line.strip())
+    for b in built:
+        _build.load_library(b.name)
+    log(card, f"kernel build: {time.perf_counter() - t0:.2f} s in all, one nvcc per source in "
+              f"parallel ({', '.join(f'{b.name} {b.seconds:.2f} s' for b in built)})")
+    for b in built:
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(card, f"ptxas {b.name}: " + line.strip())
 
     # ---- 2. scene
     from rfw_tpu_torch.convert import from_numpy_scene
@@ -501,15 +1013,14 @@ def main() -> int:
     del calls
     torch.cuda.synchronize()
     film = new_film(W, H, device=dev)
-    for k in tr.LAUNCHES:
-        tr.LAUNCHES[k] = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     for s in range(SPP):
         add_sample(film, sample(s + 1).radiance)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(tr.LAUNCHES)
+    launches = {k: read_launches()[k] for k in tr.LAUNCHES}
     peak = torch.cuda.max_memory_allocated(dev)
     frame = tonemap(film, SPP, W, H)
     torch.cuda.synchronize()
@@ -532,16 +1043,39 @@ def main() -> int:
     profile_sample(card, lambda: sample(SPP + 2))
     busy_share(card, lambda s: sample(SPP + 3 + s), 4)
 
-    kernels = []
-    for kind, name in (("closest", "K1 closest_hit"), ("occluded", "K2 occluded")):
-        rows = main_rows[kind]
-        kernels.append(dict(
-            name=name, route="cuda", source="rfw_tpu_torch/csrc/traverse.cu",
-            replaces="rfw_tpu/ops/traverse.py:335", launches=launches[kind],
-            max_abs_err=max([cmp["K1" if kind == "closest" else "K2"]]
-                            + [r["max_abs_err"] for r in rows]),
-            ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
-            calls=rows))
+    # ---- 7. two-phase on the flagship scene
+    tp = phase7(card, dev, scene, mats, atlas, lights, view_full, ps, base)
+
+    # ---- 8. the instance-heavy scene
+    heavy = phase8(card, dev, base)
+
+    def row(name, source, replaces, launches, rows, extra_err=()):
+        b = max(rows, key=lambda r: r["bound_ms"]) if rows else None
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches,
+                    max_abs_err=max([*extra_err, *(r["max_abs_err"] for r in rows)]),
+                    ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+                    bound_ms=sum(r["bound_ms"] for r in rows),
+                    bound_by=b["bound_by"] if b else None, library_ms=None, calls=rows)
+
+    items_src = "rfw_tpu_torch/csrc/traverse_items.cu"
+    kernels = [
+        row("K1 closest_hit", "rfw_tpu_torch/csrc/traverse.cu", "rfw_tpu/ops/traverse.py:335",
+            launches["closest"], main_rows["closest"], [cmp["K1"]]),
+        row("K2 occluded", "rfw_tpu_torch/csrc/traverse.cu", "rfw_tpu/ops/traverse.py:335",
+            launches["occluded"], main_rows["occluded"], [cmp["K2"]]),
+        row("K3 items closest", items_src, "rfw_tpu/ops/traverse_items.py:107",
+            tp["launches"]["items_closest"], tp["K3"], [r["max_abs_err"] for r in heavy["K3"]]),
+        row("K5 items any-hit", items_src, "rfw_tpu/ops/traverse_items.py:107",
+            heavy["launches"]["items_occluded"], heavy["K5"],
+            [r["max_abs_err"] for r in tp["K5"]]),
+        row("K4 tlas_entries", "rfw_tpu_torch/csrc/traverse_entries.cu",
+            "rfw_tpu/ops/traverse_entries.py:53", heavy["launches"]["entries"], heavy["K4"],
+            [r["max_abs_err"] for r in tp["K4"]]),
+        row("K6 dense items (closest + any-hit)", items_src, "rfw_tpu/ops/traverse_items.py:527",
+            heavy["launches"]["dense_closest"] + heavy["launches"]["dense_occluded"],
+            heavy["K6"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

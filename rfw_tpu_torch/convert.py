@@ -30,9 +30,9 @@ def to_tensor(x, device) -> torch.Tensor:
 
 
 def from_numpy_scene(trace_scene, device_materials, device_lights, atlas,
-                     device):
+                     device="cuda"):
     """Returns (TraceScene, DeviceMaterials, DeviceLights, TextureAtlas) of
-    tensors on `device`."""
+    tensors on `device` (the card unless the caller names another)."""
     scene = TraceScene(*[to_tensor(getattr(trace_scene, f), device)
                          for f in TraceScene._fields])
     mats = DeviceMaterials(**{

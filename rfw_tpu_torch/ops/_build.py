@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-`load_library()` compiles every `rfw_tpu_torch/csrc/*.cu` with nvcc for
-Hopper (`sm_90a`) into one shared library with a plain C interface, and
-loads it with ctypes. The build happens at first use, never at import, into
+Each `rfw_tpu_torch/csrc/<name>.cu` compiles with nvcc for Hopper
+(`sm_90a`) into its own shared library with a plain C interface, loaded
+with ctypes. `build()` starts one nvcc per source, all at once, and waits
+for them; `load_library(name)` builds what is missing and loads one
+library. The build happens at first use, never at import, into
 `build/rfw_tpu_torch/<hash>/` at the root of the checkout; the hash covers
-the sources and the compiler flags, so a changed source builds anew and an
-unchanged one is reused. A failed nvcc raises with its stderr.
+the source, the shared headers (`csrc/*.cuh`) and the compiler flags, so a
+changed source builds anew and an unchanged one is reused. A failed nvcc
+raises with its stderr.
 """
 
 from __future__ import annotations
@@ -17,21 +20,74 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import Dict, List, NamedTuple
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "rfw_tpu_torch"
-LIB_NAME = "librfw_tpu_torch_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_LIB: Optional[ctypes.CDLL] = None
+_p, _i = ctypes.c_void_p, ctypes.c_int
+#: C entry points per source: function name -> argtypes (each returns int)
+SIGNATURES = {
+    "traverse": {
+        "rfw_traverse": [
+            _i,  # any_hit
+            _p, _i,  # nodes, n_nodes
+            _p, _i,  # tris, n_tri_rows
+            _p, _i,  # insts, n_inst
+            _p, _i,  # roots, tlas_root
+            _p, _p, _p, _i,  # ray_o, ray_d, t_limit, n_rays
+            _p, _p, _p, _p, _p,  # out_t, out_prim, out_inst, out_u, out_v
+            _p,  # out_occluded
+            _p,  # stream
+        ],
+    },
+    "traverse_items": {
+        "rfw_items": [
+            _i,  # any_hit
+            _p, _i,  # nodes, n_nodes
+            _p, _i,  # tris, n_tri_rows
+            _p, _i,  # insts, n_inst
+            _p,  # roots
+            _p,  # item_inst
+            _p, _p, _p, _i,  # ray_o, ray_d, t_limit, n_items
+            _p, _p, _p, _p, _p,  # out_t, out_prim, out_inst, out_u, out_v
+            _p,  # out_occluded
+            _p,  # stream
+        ],
+        "rfw_dense_items": [
+            _i,  # any_hit
+            _p, _i,  # tris, n_tri_rows
+            _p, _i,  # insts, n_inst
+            _p, _p,  # tlo, thi
+            _p,  # item_inst
+            _p, _p, _p, _i,  # ray_o, ray_d, t_limit, n_items
+            _p, _p, _p, _p, _p,  # out_t, out_prim, out_inst, out_u, out_v
+            _p,  # out_occluded
+            _p,  # stream
+        ],
+    },
+    "traverse_entries": {
+        "rfw_tlas_entries": [
+            _i,  # K
+            _p, _i,  # nodes, n_nodes
+            _i,  # tlas_root
+            _p, _p, _p, _i,  # ray_o, ray_d, t_limit, n_rays
+            _p, _p,  # out_t (R,K), out_inst (R,K)
+            _p,  # stream
+        ],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 class Built(NamedTuple):
+    name: str
     path: Path
     seconds: float  # spent in nvcc; 0.0 when the library was already built
     log: str  # nvcc's stderr: the ptxas register/spill report
@@ -49,63 +105,66 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources():
-    srcs = sorted(SRC_DIR.glob("*.cu"))
-    if not srcs:
-        raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
-    return srcs
-
-
-def _digest(srcs) -> str:
+def _digest(src: Path) -> str:
     h = hashlib.sha256()
-    for s in srcs:
+    for s in [src, *sorted(SRC_DIR.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build() -> Built:
-    """Compile the kernels unless this source hash is built already."""
-    srcs = _sources()
-    out_dir = BUILD_ROOT / _digest(srcs)
-    lib_path = out_dir / LIB_NAME
-    if lib_path.exists():
-        log = out_dir / "build.log"
-        return Built(lib_path, 0.0, log.read_text() if log.exists() else "")
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in srcs]]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    (out_dir / "build.log").write_text(proc.stderr)
-    os.replace(tmp, lib_path)
-    return Built(lib_path, seconds, proc.stderr)
+def _lib_path(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    if not src.exists():
+        raise RuntimeError(f"no CUDA source {src}")
+    return BUILD_ROOT / _digest(src) / f"librfw_{name}.so"
 
 
-def load_library() -> ctypes.CDLL:
-    """The loaded kernel library (built at the first call)."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    lib = ctypes.CDLL(str(build().path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rfw_traverse.restype = i
-    lib.rfw_traverse.argtypes = [
-        i,  # any_hit
-        p, i,  # nodes, n_nodes
-        p, i,  # tris, n_tri_rows
-        p, i,  # insts, n_inst
-        p, i,  # roots, tlas_root
-        p, p, p, i,  # ray_o, ray_d, t_limit, n_rays
-        p, p, p, p, p,  # out_t, out_prim, out_inst, out_u, out_v
-        p,  # out_occluded
-        p,  # stream
-    ]
-    _LIB = lib
-    return _LIB
+def build(names=None) -> List[Built]:
+    """Compile the named sources (default: every `csrc/*.cu`) that are not
+    built at their current hash, one nvcc process each, all in parallel."""
+    if names is None:
+        names = sorted(p.stem for p in SRC_DIR.glob("*.cu"))
+    done, running = [], []
+    for name in names:
+        lib = _lib_path(name)
+        if lib.exists():
+            log = lib.parent / f"{name}.log"
+            done.append(Built(name, lib, 0.0, log.read_text() if log.exists() else ""))
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.parent / f".{lib.name}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        running.append((name, lib, tmp, cmd, proc, time.perf_counter()))
+    failed = []
+    for name, lib, tmp, cmd, proc, t0 in running:
+        _, err = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+            continue
+        (lib.parent / f"{name}.log").write_text(err)
+        os.replace(tmp, lib)
+        done.append(Built(name, lib, seconds, err))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library of `csrc/<name>.cu` (built at first call),
+    with restype and argtypes set on each of its C entry points."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    lib = ctypes.CDLL(str(build([name])[0].path))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.restype = _i
+        f.argtypes = argtypes
+    _LIBS[name] = lib
+    return lib

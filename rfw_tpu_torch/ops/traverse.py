@@ -13,7 +13,9 @@ CUDA kernel in `rfw_tpu_torch/csrc/traverse.cu`, built at first use by
   * `closest_hit_plain` / `occluded_plain` — a vectorised torch lockstep
     walk over the same prepared arrays, one lane per ray, with the kernel's
     per-ray semantics (visit order, leaf test, tie rules). The CPU tests
-    use it, and the smoke check compares the kernel with it on the card;
+    use it, and the smoke check compares the kernel with it on the card.
+    The two-phase items walk (`ops.traverse_items`) is the same walk
+    entered at an instance's BLAS root;
   * `LAUNCHES` — how many times each kernel was launched.
 """
 
@@ -49,6 +51,11 @@ class PreparedScene(NamedTuple):
     insts: (I+1, 16) f32 — per instance the world->object 3x4 affine in
       floats 0..11; the last row is the identity (world space).
     roots: (max(I,1),) i32 — BLAS root supernode per instance.
+    inst_min, inst_max: (I,3) f32 — world-space instance boxes, arena rows
+      (padding rows inverted: +inf / -inf), for two-phase phase A.
+    tlo, thi: (max(I,1),) i32 — per instance, the treelet range [tlo, thi)
+      of its mesh in the triangle arena (0, 0 where unknown), for the
+      dense items tier.
     """
 
     nodes: torch.Tensor
@@ -57,6 +64,10 @@ class PreparedScene(NamedTuple):
     roots: torch.Tensor
     tlas_root: int
     n_inst: int  # instance rows; also the index of the identity row
+    inst_min: torch.Tensor
+    inst_max: torch.Tensor
+    tlo: torch.Tensor
+    thi: torch.Tensor
 
 
 def _woop12(v0, e1, e2):
@@ -116,9 +127,24 @@ def prepare_scene(scene) -> PreparedScene:
                                           dtype=torch.float32, device=dev)], dim=1)
     roots = (scene.blas8_root.to(torch.int32) if n_inst
              else torch.zeros(1, dtype=torch.int32, device=dev))
+
+    # per-instance treelet range of its mesh (pack TREELET-aligns ranges)
+    if n_inst:
+        rng = scene.mesh_tri_range.to(torch.int32)
+        im = scene.inst_mesh.to(torch.int32)
+        idx = torch.clamp(im, 0, rng.shape[0] - 1).long()
+        present = (im >= 0) & (im < rng.shape[0])
+        tlo = torch.where(present, rng[idx, 0], 0) >> TSHIFT
+        thi = torch.where(present, rng[idx, 1], 0) >> TSHIFT
+    else:
+        tlo = thi = torch.zeros(1, dtype=torch.int32, device=dev)
     return PreparedScene(nodes=nodes, tris=tris.contiguous(),
                          insts=insts.contiguous(), roots=roots.contiguous(),
-                         tlas_root=nb8, n_inst=n_inst)
+                         tlas_root=nb8, n_inst=n_inst,
+                         inst_min=scene.inst_aabb_min.to(torch.float32).contiguous(),
+                         inst_max=scene.inst_aabb_max.to(torch.float32).contiguous(),
+                         tlo=tlo.to(torch.int32).contiguous(),
+                         thi=thi.to(torch.int32).contiguous())
 
 
 def _t_limit(t_limit, n: int, device) -> torch.Tensor:
@@ -132,10 +158,86 @@ def _safe_inv(x: torch.Tensor) -> torch.Tensor:
                              torch.where(x < 0, -1e-20, 1e-20), x)
 
 
-def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
+def _rebase(ps: PreparedScene, ins, wo, wd):
+    """World rays (n,3) in the object space of instance rows `ins` (the
+    identity row for -1 or out of range): (ox, oy, oz, dx, dy, dz)."""
+    n_inst = ps.n_inst
+    row = torch.where((ins < 0) | (ins >= n_inst), n_inst, ins).long()
+    m = ps.insts[row]
+    ox = m[:, 0] * wo[:, 0] + m[:, 1] * wo[:, 1] + m[:, 2] * wo[:, 2] + m[:, 3]
+    oy = m[:, 4] * wo[:, 0] + m[:, 5] * wo[:, 1] + m[:, 6] * wo[:, 2] + m[:, 7]
+    oz = m[:, 8] * wo[:, 0] + m[:, 9] * wo[:, 1] + m[:, 10] * wo[:, 2] + m[:, 11]
+    dx = m[:, 0] * wd[:, 0] + m[:, 1] * wd[:, 1] + m[:, 2] * wd[:, 2]
+    dy = m[:, 4] * wd[:, 0] + m[:, 5] * wd[:, 1] + m[:, 6] * wd[:, 2]
+    dz = m[:, 8] * wd[:, 0] + m[:, 9] * wd[:, 1] + m[:, 10] * wd[:, 2]
+    return ox, oy, oz, dx, dy, dz
+
+
+def _leaf_slots(ps: PreparedScene, first, count, obj, tcur):
+    """The kernels' treelet leaf test for n rays at once: the treelet at
+    triangle row `first` (n,), its first `count` (n,) slots, against the
+    object-space rays `obj` = (ox, oy, oz, dx, dy, dz) of (n,) each, with
+    hits limited to (T_MIN, tcur). Returns (ok, t, u, v), each (n, 64);
+    a treelet that would run past the arena passes nothing."""
+    treelets = ps.tris.reshape(-1, TREELET, 16)
+    ok_rows = first + count <= ps.tris.shape[0]
+    rec = treelets[torch.where(ok_rows, first >> TSHIFT, 0).long()]
+    a = [rec[:, :, k] for k in range(12)]
+    lox, loy, loz, ldx, ldy, ldz = (x[:, None] for x in obj)
+    opu = a[0] * lox + a[1] * loy + a[2] * loz + a[3]
+    opv = a[4] * lox + a[5] * loy + a[6] * loz + a[7]
+    opw = a[8] * lox + a[9] * loy + a[10] * loz + a[11]
+    dpu = a[0] * ldx + a[1] * ldy + a[2] * ldz
+    dpv = a[4] * ldx + a[5] * ldy + a[6] * ldz
+    dpw = a[8] * ldx + a[9] * ldy + a[10] * ldz
+    t = -opw / dpw
+    u = opu + t * dpu
+    v = opv + t * dpv
+    slot_ids = torch.arange(TREELET, device=first.device)
+    ok = ((u >= -1e-7) & (v >= -1e-7) & (u + v <= 1 + 1e-7)
+          & (t > T_MIN) & (t < tcur[:, None])
+          & (slot_ids[None, :] < count[:, None]) & ok_rows[:, None])
+    return ok, t, u, v
+
+
+def _child_slab(bx, c, obj_o, inv):
+    """Slab test of child c of boxes bx (n, 8, 6) for rays with origins
+    obj_o and inverse directions inv (3 tuples of (n,)): (tn, tf)."""
+    tx0 = (bx[:, c, 0] - obj_o[0]) * inv[0]
+    tx1 = (bx[:, c, 3] - obj_o[0]) * inv[0]
+    ty0 = (bx[:, c, 1] - obj_o[1]) * inv[1]
+    ty1 = (bx[:, c, 4] - obj_o[1]) * inv[1]
+    tz0 = (bx[:, c, 2] - obj_o[2]) * inv[2]
+    tz1 = (bx[:, c, 5] - obj_o[2]) * inv[2]
+    tn = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                     torch.minimum(ty0, ty1)),
+                       torch.minimum(tz0, tz1))
+    tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                     torch.maximum(ty0, ty1)),
+                       torch.maximum(tz0, tz1))
+    return tn, tf
+
+
+def node_arrays(ps: PreparedScene):
+    """(boxes (S,8,6) f32, codes (S,8) i32, counts (S,8) i32) of the
+    supernode rows."""
+    S = ps.nodes.shape[0]
+    boxes = ps.nodes[:, :6 * ARITY].contiguous().view(torch.float32)
+    return (boxes.reshape(S, ARITY, 6), ps.nodes[:, 6 * ARITY:7 * ARITY],
+            ps.nodes[:, 7 * ARITY:8 * ARITY])
+
+
+def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
+                start_inst=None, stats=None):
     """Lockstep torch walk with the kernel's per-ray semantics. Each
     iteration advances every live ray by one node visit; rays that finish
-    leave the active set."""
+    leave the active set.
+
+    start_inst: None walks both levels from the TLAS root; an (R,) i32
+    tensor walks each ray in the BLAS of its instance from that BLAS root
+    (the two-phase items walk), and -1 marks an empty item that walks
+    nothing. stats: a dict whose "boxes" and "tris" entries gain the child
+    box tests and triangle slot tests the walk made."""
     dev = ray_o.device
     R = ray_o.shape[0]
     i32 = torch.int32
@@ -147,16 +249,16 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
     occluded = torch.zeros(R, dtype=torch.bool, device=dev)
 
     S = ps.nodes.shape[0]
-    boxes = ps.nodes[:, :6 * ARITY].contiguous().view(torch.float32)
-    boxes = boxes.reshape(S, ARITY, 6)
-    codes = ps.nodes[:, 6 * ARITY:7 * ARITY]
-    cnts = ps.nodes[:, 7 * ARITY:8 * ARITY]
-    treelets = ps.tris.reshape(-1, TREELET, 16)
+    boxes, codes, cnts = node_arrays(ps)
     n_inst = ps.n_inst
-    slot_ids = torch.arange(TREELET, device=dev)
 
-    node = torch.full((R,), ps.tlas_root, dtype=i32, device=dev)
-    inst = torch.full((R,), -1, dtype=i32, device=dev)
+    if start_inst is None:
+        node = torch.full((R,), ps.tlas_root, dtype=i32, device=dev)
+        inst = torch.full((R,), -1, dtype=i32, device=dev)
+    else:
+        inst = start_inst.to(i32)
+        iid = torch.clamp(inst, 0, max(n_inst - 1, 0)).long()
+        node = torch.where(inst >= 0, ps.roots[iid], -1)
     sp = torch.zeros(R, dtype=torch.int64, device=dev)
     stack = torch.zeros((R, STACK_DEPTH, 2), dtype=i32, device=dev)
     act = torch.arange(R, device=dev)
@@ -177,15 +279,7 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
         ins = torch.where(pop, popped[:, 1], ins)
 
         # the ray in the current instance's object space
-        row = torch.where((ins < 0) | (ins >= n_inst), n_inst, ins).long()
-        m = ps.insts[row]
-        wo, wd = ray_o[act], ray_d[act]
-        ox = m[:, 0] * wo[:, 0] + m[:, 1] * wo[:, 1] + m[:, 2] * wo[:, 2] + m[:, 3]
-        oy = m[:, 4] * wo[:, 0] + m[:, 5] * wo[:, 1] + m[:, 6] * wo[:, 2] + m[:, 7]
-        oz = m[:, 8] * wo[:, 0] + m[:, 9] * wo[:, 1] + m[:, 10] * wo[:, 2] + m[:, 11]
-        dx = m[:, 0] * wd[:, 0] + m[:, 1] * wd[:, 1] + m[:, 2] * wd[:, 2]
-        dy = m[:, 4] * wd[:, 0] + m[:, 5] * wd[:, 1] + m[:, 6] * wd[:, 2]
-        dz = m[:, 8] * wd[:, 0] + m[:, 9] * wd[:, 1] + m[:, 10] * wd[:, 2]
+        ox, oy, oz, dx, dy, dz = _rebase(ps, ins, ray_o[act], ray_d[act])
 
         new_node = torch.full_like(nd, -1)
         new_inst = ins.clone()
@@ -197,25 +291,14 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
             lv = -nd[leaf] - 2
             first = (lv >> TSHIFT) << TSHIFT
             count = (lv & (TREELET - 1)) + 1
-            ok_rows = first + count <= ps.tris.shape[0]
-            rec = treelets[torch.where(ok_rows, lv >> TSHIFT, 0).long()]
-            a = [rec[:, :, k] for k in range(12)]
-            lox, loy, loz = ox[leaf, None], oy[leaf, None], oz[leaf, None]
-            ldx, ldy, ldz = dx[leaf, None], dy[leaf, None], dz[leaf, None]
-            opu = a[0] * lox + a[1] * loy + a[2] * loz + a[3]
-            opv = a[4] * lox + a[5] * loy + a[6] * loz + a[7]
-            opw = a[8] * lox + a[9] * loy + a[10] * loz + a[11]
-            dpu = a[0] * ldx + a[1] * ldy + a[2] * ldz
-            dpv = a[4] * ldx + a[5] * ldy + a[6] * ldz
-            dpw = a[8] * ldx + a[9] * ldy + a[10] * ldz
-            t = -opw / dpw
-            u = opu + t * dpu
-            v = opv + t * dpv
             rays = act[leaf]
             tcur = t_best[rays]
-            ok = ((u >= -1e-7) & (v >= -1e-7) & (u + v <= 1 + 1e-7)
-                  & (t > T_MIN) & (t < tcur[:, None])
-                  & (slot_ids[None, :] < count[:, None]) & ok_rows[:, None])
+            ok, t, u, v = _leaf_slots(
+                ps, first, count,
+                (ox[leaf], oy[leaf], oz[leaf], dx[leaf], dy[leaf], dz[leaf]), tcur)
+            if stats is not None:
+                stats["tris"] = stats.get("tris", 0) + int(
+                    torch.where(first + count <= ps.tris.shape[0], count, 0).sum())
             if any_hit:
                 hit = ok.any(dim=1)
                 occluded[rays[hit]] = True
@@ -239,8 +322,8 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
         if inner.numel():
             nidx = nd[inner].long()
             bx, cd, cn = boxes[nidx], codes[nidx], cnts[nidx]
-            iox, ioy, ioz = ox[inner], oy[inner], oz[inner]
-            iix, iiy, iiz = _safe_inv(dx[inner]), _safe_inv(dy[inner]), _safe_inv(dz[inner])
+            obj_o = (ox[inner], oy[inner], oz[inner])
+            inv = (_safe_inv(dx[inner]), _safe_inv(dy[inner]), _safe_inv(dz[inner]))
             rays = act[inner]
             tb = t_best[rays]
             cur_inst = ins[inner]
@@ -248,20 +331,12 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
             next_code = torch.full_like(cur_inst, -1)
             next_inst = cur_inst.clone()
             spi = s[inner]
+            if stats is not None:
+                stats["boxes"] = stats.get("boxes", 0) + int(
+                    (~((cd < 0) & (cn == 0))).sum())
             for c in range(ARITY):
                 code, cnt = cd[:, c], cn[:, c]
-                tx0 = (bx[:, c, 0] - iox) * iix
-                tx1 = (bx[:, c, 3] - iox) * iix
-                ty0 = (bx[:, c, 1] - ioy) * iiy
-                ty1 = (bx[:, c, 4] - ioy) * iiy
-                tz0 = (bx[:, c, 2] - ioz) * iiz
-                tz1 = (bx[:, c, 5] - ioz) * iiz
-                tn = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
-                                                 torch.minimum(ty0, ty1)),
-                                   torch.minimum(tz0, tz1))
-                tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
-                                                 torch.maximum(ty0, ty1)),
-                                   torch.maximum(tz0, tz1))
+                tn, tf = _child_slab(bx, c, obj_o, inv)
                 hitc = ((tn <= tf) & (tf > T_MIN) & (tn < tb)
                         & ~((code < 0) & (cnt == 0)))
                 payload = -code - 1
@@ -295,18 +370,26 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
     return Hit(t_best, prim, hit_inst, hit_u, hit_v)
 
 
-def closest_hit_plain(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX) -> Hit:
+def closest_hit_plain(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
+                      stats=None) -> Hit:
     """Plain torch closest hit (any device)."""
-    return _plain_walk(ps, ray_o, ray_d, t_limit, any_hit=False)
+    return _plain_walk(ps, ray_o, ray_d, t_limit, any_hit=False, stats=stats)
 
 
-def occluded_plain(ps: PreparedScene, ray_o, ray_d, t_limit) -> torch.Tensor:
+def occluded_plain(ps: PreparedScene, ray_o, ray_d, t_limit,
+                   stats=None) -> torch.Tensor:
     """Plain torch occlusion: True where geometry lies in (T_MIN, t_limit)."""
-    return _plain_walk(ps, ray_o, ray_d, t_limit, any_hit=True)
+    return _plain_walk(ps, ray_o, ray_d, t_limit, any_hit=True, stats=stats)
 
 
 # ---------------------------------------------------------------- CUDA path
-def _check_rays(ps: PreparedScene, ray_o, ray_d) -> None:
+def check_rays(ps: PreparedScene, ray_o, ray_d) -> None:
+    """Raise unless the rays are contiguous (R,3) float32 tensors on a
+    CUDA device, with every prepared array a contiguous tensor of its type
+    on that device. The kernels of this package share these checks."""
+    if ray_o.device.type != "cuda":
+        raise ValueError(f"traversal runs on the CPU or a CUDA device, "
+                         f"not {ray_o.device}")
     for name, a in (("ray_o", ray_o), ("ray_d", ray_d)):
         if a.dtype != torch.float32 or a.dim() != 2 or a.shape[1] != 3:
             raise ValueError(f"{name}: expected (R,3) float32, got "
@@ -316,33 +399,41 @@ def _check_rays(ps: PreparedScene, ray_o, ray_d) -> None:
     if ray_o.shape != ray_d.shape:
         raise ValueError("ray_o and ray_d differ in shape")
     dev = ray_o.device
+    if ray_d.device != dev:
+        raise ValueError("ray_o and ray_d are on different devices")
     for name, a, dt in (("nodes", ps.nodes, torch.int32),
                         ("tris", ps.tris, torch.float32),
                         ("insts", ps.insts, torch.float32),
-                        ("roots", ps.roots, torch.int32)):
+                        ("roots", ps.roots, torch.int32),
+                        ("tlo", ps.tlo, torch.int32),
+                        ("thi", ps.thi, torch.int32)):
         if a.device != dev or a.dtype != dt or not a.is_contiguous():
             raise ValueError(f"prepared scene {name} must be a contiguous "
                              f"{dt} tensor on {dev}")
-    if ray_d.device != dev:
-        raise ValueError("ray_o and ray_d are on different devices")
+
+
+def ptr(x):
+    """A tensor's device pointer for ctypes (None for None)."""
+    return ctypes.c_void_p(x.data_ptr()) if x is not None else None
+
+
+def stream_of(dev) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on `dev`, for ctypes."""
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
     from rfw_tpu_torch.ops._build import load_library
 
-    if ray_o.device.type != "cuda":
-        raise ValueError(f"traversal runs on the CPU or a CUDA device, "
-                         f"not {ray_o.device}")
-    _check_rays(ps, ray_o, ray_d)
-    lib = load_library()
+    check_rays(ps, ray_o, ray_d)
+    lib = load_library("traverse")
     R = ray_o.shape[0]
     dev = ray_o.device
     tl = _t_limit(t_limit, R, dev)
     f32 = torch.float32
     if any_hit:
-        outs = (torch.empty(R, dtype=torch.bool, device=dev),)
+        occ = torch.empty(R, dtype=torch.bool, device=dev)
         t = prim = inst = u = v = None
-        occ = outs[0]
     else:
         t = torch.empty(R, dtype=f32, device=dev)
         prim = torch.empty(R, dtype=torch.int32, device=dev)
@@ -353,11 +444,7 @@ def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
     if R == 0:
         return occ if any_hit else Hit(t, prim, inst, u, v)
 
-    def ptr(x):
-        return ctypes.c_void_p(x.data_ptr()) if x is not None else None
-
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rfw_traverse(
             int(any_hit),
             ptr(ps.nodes), ps.nodes.shape[0],
@@ -366,7 +453,7 @@ def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
             ptr(ps.roots), ps.tlas_root,
             ptr(ray_o), ptr(ray_d), ptr(tl), R,
             ptr(t), ptr(prim), ptr(inst), ptr(u), ptr(v), ptr(occ),
-            ctypes.c_void_p(stream),
+            stream_of(dev),
         )
     if rc != 0:
         raise RuntimeError(f"traverse kernel launch failed: cudaError {rc}")

@@ -11,7 +11,9 @@ from __future__ import annotations
 import torch
 
 
-def new_film(width: int, height: int, device=None) -> torch.Tensor:
+def new_film(width: int, height: int, device="cuda") -> torch.Tensor:
+    """A zeroed (H*W,3) float32 accumulator on `device` (the card unless
+    the caller names another)."""
     return torch.zeros((width * height, 3), dtype=torch.float32, device=device)
 
 

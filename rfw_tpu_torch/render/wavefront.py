@@ -1,9 +1,8 @@
 """Wavefront path-tracing integrator (torch).
 
-Counterpart of `rfw_tpu/render/wavefront.py`, for the configuration in
-which one traversal kernel traces every ray (`two_phase="off"`) and the
-Owen-scrambled Sobol sampler draws every uniform. One call of
-`render_sample` traces one sample per pixel:
+Counterpart of `rfw_tpu/render/wavefront.py`, with the Owen-scrambled Sobol
+sampler drawing every uniform. One call of `render_sample` traces one
+sample per pixel:
 
   * vertex 0 is peeled: camera rays, closest hit, sky for misses, then
     shading of the hit lanes (sorted to a hit prefix when compaction is on),
@@ -23,12 +22,20 @@ reference GPU renderer reads its queue counters back the same way.
 Traversal: `config.traversal="auto"` calls `ops.traverse.closest_hit` /
 `occluded`, which launch the CUDA kernel for tensors on the card and run
 the plain torch walk for tensors on the CPU; `"lockstep"` runs the plain
-walk on any device. The rest of the pipeline (swizzle, sorts, compaction)
-is the same for both, so the two differ only in the traversal.
+walk on any device. With `"auto"`, `two_phase="auto"` or `"on"` traces the
+bounce rays' closest hits through the two-phase path
+(`ops.traverse_items.twophase_closest_with_fallback`: instance entries,
+per-instance BLAS walks, classic retrace of truncated rays), and
+`RFW_TP_SHADOW=1` their shadow rays through its any-hit twin; primaries
+and vertex-0 shadows stay on the classic kernel. `RFW_DENSE_ITEMS=1` turns
+on the dense items tier inside it. With `"lockstep"` two-phase is off, as
+it is in the JAX package outside its kernel tier. The rest of the pipeline
+(swizzle, sorts, compaction) is the same for every traversal.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -42,6 +49,10 @@ from rfw_tpu_torch.ops.traverse import (
     occluded,
     occluded_plain,
     prepare_scene,
+)
+from rfw_tpu_torch.ops.traverse_items import (
+    twophase_closest_with_fallback,
+    twophase_occluded_with_fallback,
 )
 from rfw_tpu_torch.render import disney
 from rfw_tpu_torch.render.atlas import TextureAtlas, sample_bilinear
@@ -94,10 +105,9 @@ def _fetch_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 class RenderConfig:
     """Integrator settings, with the JAX package's fields and defaults.
 
-    Ported here: sampler="sobol", two_phase="off", traversal "auto" or
-    "lockstep". The JAX defaults sampler="random" and two_phase="auto"
-    raise NotImplementedError in `render_sample` until they are ported;
-    the two-phase sizing fields (tp_K, tp_items_per_ray) come with it."""
+    Ported here: sampler="sobol", two_phase "auto"/"on"/"off", traversal
+    "auto" or "lockstep". The JAX default sampler="random" raises
+    NotImplementedError in `render_sample` until it is ported."""
 
     max_bounces: int = 3
     clamp: float = 10.0
@@ -120,11 +130,17 @@ class RenderConfig:
     #   mat_feature_mask() computes it
     sort_secondary: bool = True  # re-sort bounce rays by (direction
     #   octant, origin Morton code), dead lanes last
-    two_phase: str = "auto"  # only "off" is ported: one kernel traces all
+    two_phase: str = "auto"  # "auto" | "on" | "off": with traversal
+    #   "auto", bounce rays' closest hits go through the two-phase path
+    #   (instance entries, per-instance BLAS walks, classic retrace of
+    #   truncated rays); "off" traces every ray with the classic kernel
     has_area_lights: bool = True  # the scene has area lights (else the
     #   NEE<->BSDF MIS machinery is skipped)
     compaction: str = "auto"  # "auto" | "off": bounce vertices run on the
     #   live prefix at the smallest of a few lengths >= the live count
+    tp_K: int = 6  # two-phase: instance entries kept per ray
+    tp_items_per_ray: float = 1.25  # two-phase: item buffer slots per ray
+    #   (items beyond it are dropped and their rays retraced)
 
 
 class SampleResult(NamedTuple):
@@ -640,10 +656,7 @@ def render_sample(
             f"sampler={config.sampler!r} is not ported yet; use 'sobol'")
     if sample_index is None:
         raise ValueError("the sobol sampler needs sample_index")
-    if config.two_phase in ("auto", "on"):
-        raise NotImplementedError(
-            f"two_phase={config.two_phase!r} is not ported yet; use 'off'")
-    if config.two_phase != "off":
+    if config.two_phase not in ("auto", "on", "off"):
         raise ValueError(f"two_phase={config.two_phase!r}")
     if config.traversal == "auto":
         trace_closest, trace_occluded = closest_hit, occluded
@@ -652,6 +665,17 @@ def render_sample(
     else:
         raise ValueError(
             f"traversal={config.traversal!r}: expected 'auto' or 'lockstep'")
+    trace_bounce, trace_occluded_bounce = trace_closest, trace_occluded
+    if config.traversal == "auto" and config.two_phase in ("auto", "on"):
+        def trace_bounce(ps, o, d, tl):
+            return twophase_closest_with_fallback(
+                ps, o, d, tl, K=config.tp_K, items_per_ray=config.tp_items_per_ray)
+
+        if os.environ.get("RFW_TP_SHADOW", "0") == "1":
+            def trace_occluded_bounce(ps, o, d, tl):
+                return twophase_occluded_with_fallback(
+                    ps, o, d, tl, K=config.tp_K,
+                    items_per_ray=config.tp_items_per_ray)
 
     dev = view.device
     f32 = torch.float32
@@ -840,8 +864,9 @@ def render_sample(
         cos_l = torch.clamp(wi_local[2], min=0.0)
         can_light = alive & (total_lights > 0) & (cos_l > 0)
         shadow_o = v3_add(pos, v3_scale(basis["ng"], config.shadow_eps))
-        # zero-contribution lanes get t_limit 0 and leave at once
-        occ = trace_occluded(
+        # zero-contribution lanes get t_limit 0 and leave at once; bounce
+        # vertices may take the two-phase any hit (RFW_TP_SHADOW=1)
+        occ = (trace_occluded if first else trace_occluded_bounce)(
             ps, v3_stack(shadow_o), v3_stack(wi_l),
             torch.where(can_light, dist_l - 2.0 * config.shadow_eps, 0.0))
         if config.has_area_lights:
@@ -925,8 +950,8 @@ def render_sample(
         else:
             pre = _tmap(lambda a: a[:n], st)
             suf = _tmap(lambda a: a[n:], st)
-        hit = trace_closest(ps, v3_stack(pre.ray_o), v3_stack(pre.ray_d),
-                            torch.where(pre.alive, T_MAX, 0.0))
+        hit = trace_bounce(ps, v3_stack(pre.ray_o), v3_stack(pre.ray_d),
+                           torch.where(pre.alive, T_MAX, 0.0))
         new_pre, _ = shade_vertex(pre, hit, depth, first=False, last=last)
         if suf is None:
             return new_pre

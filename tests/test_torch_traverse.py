@@ -98,6 +98,13 @@ def test_prepared_layout_matches_pallas_scene(setup, pallas):
     assert np.array_equal(inst[:ps.insts.shape[0]], ps.insts.numpy())
     assert ps.tlas_root == jps.tlas_root and ps.n_inst == jps.n_inst
     assert np.array_equal(np.asarray(jps.root_t)[0, :ps.roots.shape[0]], ps.roots.numpy())
+    # what the two-phase kernels read: world instance boxes (arena rows,
+    # padding inverted) and each instance's treelet range
+    assert np.array_equal(np.asarray(jps.inst_box_min), ps.inst_min.numpy())
+    assert np.array_equal(np.asarray(jps.inst_box_max), ps.inst_max.numpy())
+    assert np.array_equal(np.asarray(jps.tlo_t)[0, :ps.tlo.shape[0]], ps.tlo.numpy())
+    assert np.array_equal(np.asarray(jps.thi_t)[0, :ps.thi.shape[0]], ps.thi.numpy())
+    assert (ps.thi > ps.tlo).sum() == int((setup["scene"].inst_mesh >= 0).sum())
 
 
 def test_plain_closest_vs_oracle(setup):
@@ -162,9 +169,9 @@ def test_cuda_wrapper_rejects_other_devices(setup):
         tr.occluded(setup["ps"], o, o, 1.0)
 
 
-@pytest.mark.skipif(not torch.cuda.is_available(),
-                    reason="needs a CUDA device: the kernel has no CPU mode")
 def test_kernel_matches_plain_on_card(setup):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     ps = tr.PreparedScene(*[x.cuda() if isinstance(x, torch.Tensor) else x
                             for x in setup["ps"]])
     o, d = setup["o"].cuda(), setup["d"].cuda()

@@ -62,7 +62,7 @@ def _jax_render(scene, kw, width=W, height=H):
 
 def _port_render(scene, kw, width=W, height=H, sample_index=SAMPLE, **extra):
     sc, mats, lights, atlas, camera = scene
-    s, m, li, a = from_numpy_scene(sc, mats, lights, atlas, "cpu")
+    s, m, li, a = from_numpy_scene(sc, mats, lights, atlas, device="cpu")
     view = torch.from_numpy(camera.get_view(width, height).as_array())
     r = tw.render_sample(s, m, a, li, view, width, height,
                          tw.RenderConfig(**kw, **extra), sample_index=sample_index)
@@ -110,7 +110,7 @@ def test_tonemap_matches_jax(renders):
 
 
 def test_film_accumulates_in_place():
-    acc = film.new_film(4, 2)
+    acc = film.new_film(4, 2, device="cpu")
     s = torch.arange(24, dtype=torch.float32).reshape(8, 3)
     out = film.add_sample(acc, s)
     out = film.add_sample(acc, s)
@@ -131,13 +131,46 @@ def test_compaction_and_sort_do_not_change_pixels(scene):
 
 
 @pytest.mark.parametrize("bad,exc", [(dict(sampler="random"), NotImplementedError),
-                                     (dict(two_phase="auto"), NotImplementedError),
-                                     (dict(two_phase="on"), NotImplementedError),
+                                     (dict(two_phase="maybe"), ValueError),
                                      (dict(traversal="pallas"), ValueError)])
 def test_unported_options_raise(scene, bad, exc):
     kw = {**_cfg_kwargs(scene[1], 1), **bad}
     with pytest.raises(exc):
         _port_render(scene, kw)
+
+
+@pytest.mark.parametrize("two_phase,tp_shadow", [("auto", "0"), ("on", "0"), ("on", "1")],
+                         ids=["auto", "on", "on-tp_shadow"])
+def test_two_phase_render_matches_jax(renders, scene, request, monkeypatch, two_phase,
+                                      tp_shadow):
+    """The two-phase path (its plain versions on the CPU) renders what
+    rfw_tpu's classic render does, at the radiance tolerances above, with
+    bounce shadows classic or two-phase (RFW_TP_SHADOW); and the same
+    pixels as the port's own two_phase="off" render to float32 rounding.
+    The two-phase contract is exact, so the classic render is its
+    reference (rfw_tpu cannot run its two-phase kernels inside
+    render_sample on a CPU)."""
+    from rfw_tpu_torch.ops import traverse_items as ti
+
+    ref, off = renders
+    kw = {**_cfg_kwargs(scene[1], request.node.callspec.params["renders"]),
+          "two_phase": two_phase}
+    calls = []
+    orig = ti.twophase_closest_fused
+
+    def counted(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(ti, "twophase_closest_fused", counted)
+    monkeypatch.setenv("RFW_TP_SHADOW", tp_shadow)
+    got = _port_render(scene, kw)
+    assert calls  # the bounce vertices went through the two-phase path
+    assert np.isfinite(got["radiance"]).all()
+    assert _frac_close(got["radiance"], ref["radiance"], 1e-3, 1e-3) >= 0.99
+    m_ref, m_got = ref["radiance"].mean(), got["radiance"].mean()
+    assert abs(m_got - m_ref) <= 1e-3 * m_ref
+    np.testing.assert_allclose(got["radiance"], off["radiance"], rtol=1e-5, atol=1e-6)
 
 
 def _light_table_lights(n_point):
@@ -198,3 +231,19 @@ def test_sample_light_matches_jax(n_point):
             continue
         rtol = 1e-4 if name == "rad_over_pdf" else 1e-5
         np.testing.assert_allclose(g, r, rtol=rtol, atol=1e-6, err_msg=name)
+
+
+def test_entry_points_default_to_cuda(scene):
+    """new_film and from_numpy_scene put their tensors on the card unless
+    the caller names a device: on a machine without one they raise rather
+    than fall back to the CPU."""
+    from rfw_tpu_torch.convert import from_numpy_scene as convert
+
+    if torch.cuda.is_available():
+        assert film.new_film(4, 2).device.type == "cuda"
+        assert convert(*scene[:4])[0].tri_v0.device.type == "cuda"
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        film.new_film(4, 2)
+    with pytest.raises((RuntimeError, AssertionError)):
+        convert(*scene[:4])
