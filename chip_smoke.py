@@ -45,28 +45,42 @@ Phases (any failed check raises, so the script exits nonzero):
      of the two-phase call; then the A/B in turns: classic K1 against the
      two-phase call with and without K6 on the captured bounce rays, and
      ms per sample of "off", "auto", and "auto" with both switches set,
-     whose first turn is the counted run (every kernel must launch).
+     whose first turn is the counted run (every kernel must launch);
+  9. the microbenchmarks of rfw_tpu_torch.tools: U1 (the leaf-test stages)
+     in every variant against its plain version in one block and in a
+     block per SM, U2 (K1's call shape without the walk) in every variant
+     against its plain version at 1 and 512 tiles; then the counted run of
+     their entry points (U1 in one block and in a block per SM, U2 over 1,
+     8, 64 and 512 tiles with K1 on the same rays), and K1's time on the
+     1080p primaries split by the cost model they give (call shape, leaf
+     tests, node visits, remainder).
 Every number is printed beside the card's name and power limit. The line
 before the last two is {"kernels": [...]}: per kernel, its launches in its
 path's counted run, its largest disagreement with the plain version, its
 time and the plain version's per 1080p sample (the sum over the sample's
-calls, each timed on that call's captured inputs), the least time the card
-could take for the same work (bytes over 3.35 TB/s or fp32 operations over
-67 TFLOP/s, whichever is larger) and which of the two bounds it; no single
-PyTorch call computes a BVH traversal, so library_ms is null. The last
-line is {"ok": true, "device": {...}}.
+calls, each timed on that call's captured inputs; for U1 one call of
+`full` at 512 iterations in one block, for U2 one `trivial` launch at 512
+tiles), the least time the card could take for the same work (bytes over
+3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is larger; U1's
+operations over the fp32 peak of the one SM it occupies) and which of the
+two bounds it; no single PyTorch call computes a BVH traversal or either
+microbenchmark, so library_ms is null. The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
-from collections import defaultdict
-from contextlib import contextmanager
+from collections import Counter, defaultdict
+from contextlib import contextmanager, redirect_stdout
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -78,6 +92,9 @@ BOUNCES = 1
 N_CMP = 65536
 N_HEAVY = 10000  # instances of the phase-8 scene
 HEAVY_SPP = 3
+U1_ITERS, U1_REPS = 512, 3  # the reference tool's defaults
+U1_CMP_ITERS = 16
+U2_TILES, U2_REPS = (1, 8, 64, 512), 3
 
 # the card's peaks for the bound (NVIDIA H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -98,165 +115,6 @@ def card_line() -> str:
 
 def log(card: str, msg: str) -> None:
     print(f"[{card}] {msg}", flush=True)
-
-
-def build_scene(seed: int):
-    """Procedural scene at the flagship scale, packed by the port's own
-    numpy packers. Returns host arenas + camera view vector builder."""
-    from rfw_tpu_torch.backend.lights import (
-        DirectionalLightsView, PointLightsView, SpotLightsView,
-    )
-    from rfw_tpu_torch.mathx import compose_trs, quat_identity
-    from rfw_tpu_torch.models import cube, quad3d, sphere
-    from rfw_tpu_torch.render.atlas import pack_atlas
-    from rfw_tpu_torch.render.lights_pack import pack_lights
-    from rfw_tpu_torch.render.pack import pack_trace_scene
-    from rfw_tpu_torch.scene import Camera3D, Material, Materials, Texture, extract_area_lights
-
-    rng = np.random.default_rng(seed)
-    mats = Materials()
-    checker = ((np.indices((256, 256)).sum(0) // 32) % 2 * 170 + 60).astype(np.uint8)
-    floor_tex = mats.push_texture(Texture.from_array(checker))
-    m_floor = mats.push(Material(name="floor", color=np.array([0.8, 0.8, 0.8, 1], np.float32),
-                                 roughness=0.7, diffuse_tex=floor_tex))
-    sphere_mats = [
-        mats.push(Material(name="diffuse", color=np.array([0.7, 0.25, 0.2, 1], np.float32),
-                           roughness=0.8)),
-        mats.push(Material(name="rough metal", color=np.array([0.9, 0.7, 0.4, 1], np.float32),
-                           metallic=1.0, roughness=0.35)),
-        mats.push(Material(name="clearcoat plastic", color=np.array([0.15, 0.3, 0.8, 1], np.float32),
-                           roughness=0.5, clearcoat=1.0, clearcoat_gloss=0.9)),
-        mats.push(Material(name="glass", color=np.array([0.95, 0.97, 1.0, 1], np.float32),
-                           roughness=0.05, transmission=1.0, eta=1.5)),
-    ]
-    m_emit = mats.push(Material(name="emitter", color=np.array([9.0, 8.5, 7.5, 1], np.float32)))
-
-    meshes, instances = [], []
-    spacing = 3.0
-    cells = [(i, j) for i in range(16) for j in range(16)]
-    order = rng.permutation(len(cells))
-    for k, mid in enumerate(sphere_mats):
-        meshes.append((k, sphere(quality=5, material_id=mid), None))
-        mk = []
-        for c in order[64 * k:64 * (k + 1)]:
-            i, j = cells[c]
-            r = float(rng.uniform(0.5, 1.1))
-            t = np.array([(i - 7.5) * spacing + rng.uniform(-0.6, 0.6), r,
-                          (j - 7.5) * spacing + rng.uniform(-0.6, 0.6)], np.float32)
-            mk.append(compose_trs(t, quat_identity(), np.full(3, r, np.float32)))
-        instances.append((k, np.stack(mk)))
-    half = 8 * spacing + 2.0
-    floor = cube(position=(0.0, -0.1, 0.0), size=(2 * half, 0.2, 2 * half), material_id=m_floor)
-    meshes.append((4, floor, None))
-    instances.append((4, np.eye(4, dtype=np.float32)[None]))
-    lamp = quad3d(normal=(0.0, -1.0, 0.0), position=(0.0, 9.0, 0.0), width=6.0, height=6.0,
-                  material_id=m_emit)
-    flags, emission = mats.light_flags(), mats.emission_table()
-    area, light_id = extract_area_lights(
-        flags[lamp.tri_material], emission[lamp.tri_material], lamp.tri_vertices(),
-        np.eye(4, dtype=np.float32)[None], 5, np.array([257]))
-    lamp.tri_light[:] = light_id
-    meshes.append((5, lamp, None))
-    instances.append((5, np.eye(4, dtype=np.float32)[None]))
-
-    t0 = time.perf_counter()
-    scene = pack_trace_scene(meshes, instances)
-    pack_s = time.perf_counter() - t0
-
-    mn, mx = scene.tlas_min[0], scene.tlas_max[0]
-    center = 0.5 * (mn + mx)
-    ext = float(np.linalg.norm(mx - mn))
-    spot = SpotLightsView(
-        position=np.array([center + [0, ext * 0.4, 0],
-                           center + [ext * 0.2, ext * 0.3, ext * 0.2]], np.float32),
-        direction=np.array([[0, -1, 0], [-0.4, -0.8, -0.4]], np.float32),
-        energy=np.array([[80, 78, 70], [40, 40, 48]], np.float32) * ext,
-        cos_inner=np.array([np.cos(np.deg2rad(25))] * 2, np.float32),
-        cos_outer=np.array([np.cos(np.deg2rad(40))] * 2, np.float32),
-        changed=np.ones(2, bool),
-    )
-    sun = DirectionalLightsView(
-        direction=np.array([[0.4, -0.8, 0.3]], np.float32),
-        energy=np.array([[3.0, 2.9, 2.6]], np.float32),
-        changed=np.ones(1, bool),
-    )
-    lights = pack_lights(PointLightsView.empty(), spot, sun, area)
-    camera = Camera3D(fov=55).look_at(
-        center + np.array([0.55, 0.35, 0.75], np.float32) * ext * 0.62, center)
-    atlas = pack_atlas([t for _, t in mats.textures])
-    return scene, mats.to_device(), lights, atlas, camera, pack_s
-
-
-def build_heavy_scene(seed: int, n_inst: int):
-    """An instance-heavy scene: n_inst instances on a square field, a mix
-    of 20,480-triangle spheres (their BLAS walk) and small meshes whose
-    treelet span is at most 64 (icospheres of quality 1 and 2, cubes: the
-    dense items tier), a floor, an area lamp and a sun; packed by the
-    port's own packers."""
-    from rfw_tpu_torch.backend.lights import (
-        DirectionalLightsView, PointLightsView, SpotLightsView,
-    )
-    from rfw_tpu_torch.mathx import compose_trs, quat_identity
-    from rfw_tpu_torch.models import cube, quad3d, sphere
-    from rfw_tpu_torch.render.atlas import pack_atlas
-    from rfw_tpu_torch.render.lights_pack import pack_lights
-    from rfw_tpu_torch.render.pack import pack_trace_scene
-    from rfw_tpu_torch.scene import Camera3D, Material, Materials, extract_area_lights
-
-    rng = np.random.default_rng(seed)
-    mats = Materials()
-    m_floor = mats.push(Material(name="floor", color=np.array([0.6, 0.6, 0.6, 1], np.float32),
-                                 roughness=0.8))
-    kinds = [(sphere(quality=5, material_id=mats.push(Material(
-                 name="metal", color=np.array([0.9, 0.7, 0.4, 1], np.float32),
-                 metallic=1.0, roughness=0.3))), 0.15),
-             (sphere(quality=2, material_id=mats.push(Material(
-                 name="red", color=np.array([0.7, 0.2, 0.15, 1], np.float32),
-                 roughness=0.7))), 0.35),
-             (sphere(quality=1, material_id=mats.push(Material(
-                 name="blue", color=np.array([0.15, 0.3, 0.8, 1], np.float32),
-                 roughness=0.5, clearcoat=1.0))), 0.25),
-             (cube(material_id=mats.push(Material(
-                 name="white", color=np.array([0.8, 0.8, 0.75, 1], np.float32),
-                 roughness=0.6))), 0.25)]
-    m_emit = mats.push(Material(name="emitter", color=np.array([9.0, 8.5, 7.5, 1], np.float32)))
-
-    side = int(np.ceil(np.sqrt(n_inst)))
-    spacing = 2.0
-    cells = rng.permutation(side * side)[:n_inst]
-    kind_of = rng.choice(len(kinds), n_inst, p=[p for _, p in kinds])
-    meshes, instances = [], []
-    for k, (mesh, _) in enumerate(kinds):
-        sel = cells[kind_of == k]
-        r = rng.uniform(0.3, 0.8, sel.shape[0]).astype(np.float32)
-        t = np.stack([(sel % side - side / 2) * spacing + rng.uniform(-0.4, 0.4, sel.shape[0]),
-                      r, (sel // side - side / 2) * spacing
-                      + rng.uniform(-0.4, 0.4, sel.shape[0])], 1).astype(np.float32)
-        meshes.append((k, mesh, None))
-        instances.append((k, np.stack([compose_trs(t[i], quat_identity(), np.full(3, r[i], np.float32))
-                                       for i in range(sel.shape[0])])))
-    half = side * spacing / 2 + 2.0
-    meshes.append((4, cube(position=(0.0, -0.1, 0.0), size=(2 * half, 0.2, 2 * half),
-                           material_id=m_floor), None))
-    instances.append((4, np.eye(4, dtype=np.float32)[None]))
-    lamp = quad3d(normal=(0.0, -1.0, 0.0), position=(0.0, 30.0, 0.0), width=30.0, height=30.0,
-                  material_id=m_emit)
-    flags, emission = mats.light_flags(), mats.emission_table()
-    area, light_id = extract_area_lights(
-        flags[lamp.tri_material], emission[lamp.tri_material], lamp.tri_vertices(),
-        np.eye(4, dtype=np.float32)[None], 5, np.array([n_inst + 1]))
-    lamp.tri_light[:] = light_id
-    meshes.append((5, lamp, None))
-    instances.append((5, np.eye(4, dtype=np.float32)[None]))
-    scene = pack_trace_scene(meshes, instances)
-    sun = DirectionalLightsView(
-        direction=np.array([[0.3, -0.8, 0.4]], np.float32),
-        energy=np.array([[3.0, 2.9, 2.6]], np.float32), changed=np.ones(1, bool))
-    lights = pack_lights(PointLightsView.empty(), SpotLightsView.empty(), sun, area)
-    camera = Camera3D(fov=60).look_at(np.array([half * 0.9, half * 0.55, half * 0.9], np.float32),
-                                      np.array([0.0, 0.0, 0.0], np.float32))
-    atlas = pack_atlas([t for _, t in mats.textures])
-    return scene, mats.to_device(), lights, atlas, camera
 
 
 @contextmanager
@@ -467,7 +325,7 @@ def compare_main_path(card, calls):
                   f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({by}; "
                   f"{stats.get('boxes', 0)} box tests, {stats.get('tris', 0)} slot tests)")
         rows[kind].append(dict(call=label, rays=n, live=live, ms=ms, plain_ms=plain_ms,
-                               bound_ms=b_ms, bound_by=by, max_abs_err=err))
+                               bound_ms=b_ms, bound_by=by, max_abs_err=err, **stats))
     return rows
 
 
@@ -631,22 +489,24 @@ def twophase_vs_classic(card, label, ps, o, d, tl, cfg, occluded_too=None):
                        name="two-phase any-hit call vs K2", exact=False, live=stl > 0)
 
 
-def reset_launches():
+def _counters():
     from rfw_tpu_torch.ops import traverse as tr
     from rfw_tpu_torch.ops import traverse_entries as te
     from rfw_tpu_torch.ops import traverse_items as ti
+    from rfw_tpu_torch.tools import ubench_grid as ug
+    from rfw_tpu_torch.tools import ubench_leaf as ul
 
-    for counts in (tr.LAUNCHES, te.LAUNCHES, ti.LAUNCHES):
+    return tr.LAUNCHES, te.LAUNCHES, ti.LAUNCHES, ul.LAUNCHES, ug.LAUNCHES
+
+
+def reset_launches():
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
 
 
 def read_launches() -> dict:
-    from rfw_tpu_torch.ops import traverse as tr
-    from rfw_tpu_torch.ops import traverse_entries as te
-    from rfw_tpu_torch.ops import traverse_items as ti
-
-    return {**tr.LAUNCHES, **te.LAUNCHES, **ti.LAUNCHES}
+    return {k: n for counts in _counters() for k, n in counts.items()}
 
 
 class StageClock:
@@ -868,6 +728,7 @@ def phase8(card, dev, base):
     from rfw_tpu_torch.render.wavefront import (
         RenderConfig, mat_feature_mask, render_sample, tex_kinds_mask,
     )
+    from rfw_tpu_torch.scenes import build_heavy_scene
 
     t0 = time.perf_counter()
     scene_np, mats_np, lights_np, atlas_np, camera = build_heavy_scene(SEED + 1, N_HEAVY)
@@ -932,6 +793,175 @@ def phase8(card, dev, base):
     return dict(K4=[k4], launches=launches, **rows)
 
 
+def run_tool(card, main, argv):
+    """Drive a tool's entry point; its one JSON line goes to the log."""
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        result = main([str(a) for a in argv])
+    log(card, f"python -m {main.__module__} {' '.join(map(str, argv))}: {buf.getvalue().strip()}")
+    return result
+
+
+def sm_clock_mhz() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+SASS_OPS = ("LDG", "SHFL", "MUFU.RCP", "F2I", "FADD", "FMUL", "FFMA", "BRA")
+
+
+def sass_census(card) -> dict:
+    """Per kernel of the microbenchmarks, the count of each SASS opcode that
+    carries the work they time (`cuobjdump -sass` of the built libraries):
+    nvcc deletes work whose result is never stored, so this shows that the
+    re-base, the leaf loop, the epilogue's division and the fetch chains
+    are still in the code. Returns {kernel symbol: Counter}."""
+    from rfw_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    census = {}
+    for b in _build.build(["ubench_leaf", "ubench_grid"]):
+        sass = subprocess.run([str(tool), "-sass", str(b.path)], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                census[fn] = Counter()
+                continue
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if fn and m:
+                op = m.group(1)
+                census[fn][op.split(".")[0]] += 1
+                if op.startswith("MUFU.RCP"):
+                    census[fn]["MUFU.RCP"] += 1
+    for fn, c in sorted(census.items()):
+        log(card, f"SASS {fn}: " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
+    return census
+
+
+def check_sass(census: dict) -> None:
+    """The census of each microbenchmark kernel holds the work it times."""
+    def of(kernel, v):
+        hits = [c for fn, c in census.items() if f"{kernel}ILi{v}E" in fn]
+        assert len(hits) == 1, f"no single SASS function for {kernel}<{v}>: {list(census)}"
+        return hits[0]
+
+    leaf = [of("leaf_kernel", v) for v in range(5)]
+    for v in (0, 1, 3):  # full, noselect, epilogue: the per-slot division
+        assert leaf[v]["MUFU.RCP"] >= 1, f"U1 variant {v}: no division left"
+    for v in (0, 1, 2):  # the record loads of the slot loop
+        assert leaf[v]["LDG"] >= 3, f"U1 variant {v}: no record loads left"
+    assert leaf[3]["SHFL"] >= 1, "U1 epilogue: the per-slot shuffle is gone"
+    # fetch: the ray's own load, and the chain's load and float-to-int step
+    assert leaf[4]["LDG"] >= 2 and leaf[4]["F2I"] >= 1, "U1 fetch: the chain is gone"
+    grid = [of("grid_kernel", v) for v in range(4)]
+    assert grid[0]["MUFU.RCP"] == 0, "U2 trivial re-bases rays"
+    for v in (1, 2, 3):  # set_obj's three reciprocals
+        assert grid[v]["MUFU.RCP"] >= 3, f"U2 variant {v}: the re-base is gone"
+    assert grid[3]["LDG"] > grid[1]["LDG"], "U2 fetch8: the node fetches are gone"
+
+
+def phase9(card, dev, ps, k1_primaries):
+    """The microbenchmarks U1 and U2: every variant of each kernel against
+    its plain version (U1 in one block and in a block per SM; U2 at 1 and
+    512 tiles), then the counted run of their entry points (launch
+    counters reset just before it, read just after), then the cost model
+    of K1 on the primaries that they give."""
+    from rfw_tpu_torch.tools import ubench_grid as ug
+    from rfw_tpu_torch.tools import ubench_leaf as ul
+
+    check_sass(sass_census(card))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tri, obj = ul.make_inputs()
+    tris, obj = ul.to_records(torch.from_numpy(tri)).to(dev), torch.from_numpy(obj).to(dev)
+    u1_err = 0.0
+    for variant in ul.VARIANTS:
+        ref = ul.leaf_plain(tris, obj, variant, U1_CMP_ITERS)
+        for copies in (1, sms):
+            got = ul.leaf(tris, obj, variant, U1_CMP_ITERS, copies)
+            same = all(torch.equal(x, y.expand_as(x)) for x, y in zip(got, ref))
+            err = max((got.t - ref.t).abs().max().item(),
+                      float((got.aux - ref.aux).abs().max().item()))
+            u1_err = max(u1_err, err)
+            log(card, f"U1 {variant} kernel vs plain, {U1_CMP_ITERS} iterations, {copies} "
+                      f"copies: max abs err {err:.3e}, identical {same}")
+            assert same, f"U1 {variant} ({copies} copies): not identical to the plain version"
+    ref, u1_plain_ms = timed(lambda: ul.leaf_plain(tris, obj, "full", U1_ITERS))
+    got = ul.leaf(tris, obj, "full", U1_ITERS)
+    same = all(torch.equal(x, y) for x, y in zip(got, ref))
+    log(card, f"U1 full kernel vs plain, {U1_ITERS} iterations, one block: identical {same}, "
+              f"plain {u1_plain_ms:.2f} ms")
+    assert same, "U1 full: not identical to the plain version"
+
+    u2_err, u2_plain_ms = 0.0, None
+    for tiles in (1, U2_TILES[-1]):
+        o, d = (torch.from_numpy(a).to(dev) for a in ug.make_rays(tiles))
+        tl = torch.full((o.shape[0],), 1e26, dtype=torch.float32, device=dev)
+        for variant in ug.VARIANTS:
+            ref, plain_ms = timed(lambda: ug.grid_plain(ps, o, d, tl, variant))
+            got = ug.grid(ps, o, d, tl, variant)
+            same = all(torch.equal(x, y) for x, y in zip(got, ref))
+            err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, ref))
+            u2_err = max(u2_err, err)
+            log(card, f"U2 {variant} kernel vs plain, {tiles} tiles: all five outputs "
+                      f"identical {same}, max abs err {err:.3e}, plain {plain_ms:.3f} ms")
+            assert same, f"U2 {variant} ({tiles} tiles): not identical to the plain version"
+            if variant == "trivial":
+                u2_plain_ms = plain_ms
+
+    # ---- the counted run: the tools' entry points as a user runs them
+    reset_launches()
+    leaf1 = run_tool(card, ul.main, ["--iters", U1_ITERS, "--reps", U1_REPS, "--copies", 1])
+    clock = sm_clock_mhz()
+    leafn = run_tool(card, ul.main, ["--iters", U1_ITERS, "--reps", U1_REPS, "--copies", sms])
+    grid = run_tool(card, ug.main, ["--tiles", *U2_TILES, "--reps", U2_REPS])
+    launches = read_launches()
+    for k in ("leaf", "grid"):
+        assert launches[k] > 0, f"the microbenchmark run never launched the {k} kernel"
+
+    log(card, f"SM clock after U1 in one block (now, max) MHz: {clock}")
+    for v in ul.VARIANTS:
+        log(card, f"U1 {v:9s}: {leaf1['us_per_iter'][v]:9.4f} us/iter in one block, "
+                  f"{leafn['us_per_iter'][v]:9.4f} us/iter in {sms} blocks "
+                  f"({leafn['us_per_iter'][v] * 1e3 / (sms * ul.RAYS):.5f} ns per ray-iteration)")
+    res = grid["results"]
+    for tiles in U2_TILES:
+        log(card, f"U2 at {tiles} tiles ({tiles * ug.TILE_RAYS} rays), us per launch "
+                  f"(device; host) and per tile: " + ", ".join(
+                      f"{v} {r['launch_us']:.3f}; {r['host_us']:.3f} ({r['tile_us']:.4f})"
+                      for v, r in res[str(tiles)].items()))
+
+    # ---- K1's time on the primaries, split by the cost model
+    full_rays = U2_TILES[-1] * ug.TILE_RAYS
+    top = res[str(U2_TILES[-1])]
+    slot_us = leafn["us_per_iter"]["full"] / (sms * ul.RAYS * 64)
+    n = k1_primaries["rays"]
+    shape_ms = top["init"]["launch_us"] / 1e3 * n / full_rays
+    leaf_ms = k1_primaries["tris"] * slot_us / 1e3
+    node_ms = k1_primaries["boxes"] * slot_us * FLOP_PER_BOX / FLOP_PER_TRI / 1e3
+    rest = k1_primaries["ms"] - shape_ms - leaf_ms - node_ms
+    log(card, f"K1 on the {n} primaries, {k1_primaries['ms']:.4f} ms: call shape (U2 init, "
+              f"scaled to {n} rays) {shape_ms:.4f} ms; leaf tests {leaf_ms:.4f} ms "
+              f"({k1_primaries['leaves']} leaf visits, {k1_primaries['tris']} slot tests x "
+              f"{slot_us * 1e6:.3f} ps, U1 full at {sms} blocks / 64 slots); node visits "
+              f"{node_ms:.4f} ms ({k1_primaries['boxes']} box tests at {FLOP_PER_BOX}/"
+              f"{FLOP_PER_TRI} of a slot test); remainder (fetch latency, divergence) "
+              f"{rest:.4f} ms ({100 * rest / k1_primaries['ms']:.1f}%)")
+
+    u1_ops = ul.RAYS * 64 * FLOP_PER_TRI * U1_ITERS
+    u1 = dict(call=f"full, {U1_ITERS} iterations, one block", ms=leaf1["ms_per_call"]["full"],
+              plain_ms=u1_plain_ms, bound_ms=u1_ops / (FP32_FLOP_PER_S / sms) * 1e3,
+              bound_by="operations", max_abs_err=u1_err)
+    u2 = dict(call=f"trivial, {U2_TILES[-1]} tiles", ms=top["trivial"]["launch_us"] / 1e3,
+              plain_ms=u2_plain_ms, bound_ms=full_rays * (4 + 20) / HBM_BYTES_PER_S * 1e3,
+              bound_by="bytes", max_abs_err=u2_err)
+    return dict(U1=[u1], U2=[u2], launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -963,6 +993,7 @@ def main() -> int:
     from rfw_tpu_torch.render.wavefront import (
         RenderConfig, mat_feature_mask, render_sample, tex_kinds_mask,
     )
+    from rfw_tpu_torch.scenes import build_scene
 
     t0 = time.perf_counter()
     scene_np, mats_np, lights_np, atlas_np, camera, pack_s = build_scene(SEED)
@@ -1049,6 +1080,9 @@ def main() -> int:
     # ---- 8. the instance-heavy scene
     heavy = phase8(card, dev, base)
 
+    # ---- 9. the microbenchmarks U1 and U2
+    ubench = phase9(card, dev, ps, main_rows["closest"][0])
+
     def row(name, source, replaces, launches, rows, extra_err=()):
         b = max(rows, key=lambda r: r["bound_ms"]) if rows else None
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1075,6 +1109,10 @@ def main() -> int:
         row("K6 dense items (closest + any-hit)", items_src, "rfw_tpu/ops/traverse_items.py:527",
             heavy["launches"]["dense_closest"] + heavy["launches"]["dense_occluded"],
             heavy["K6"]),
+        row("U1 ubench_leaf", "rfw_tpu_torch/csrc/ubench_leaf.cu", "tools/ubench_leaf.py:51",
+            ubench["launches"]["leaf"], ubench["U1"]),
+        row("U2 ubench_grid", "rfw_tpu_torch/csrc/ubench_grid.cu", "tools/ubench_grid.py:60",
+            ubench["launches"]["grid"], ubench["U2"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

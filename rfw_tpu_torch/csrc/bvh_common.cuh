@@ -51,6 +51,12 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az,
   return __fadd_rn(__fadd_rn(__fmul_rn(ax, x), __fmul_rn(ay, y)), __fmul_rn(az, z));
 }
 
+// a mod m in [0, m) for m > 0, as Python's and jnp's % (C's % truncates)
+__device__ __forceinline__ int floor_mod(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
 __device__ __forceinline__ float safe_inv(float x) {
   const float y = fabsf(x) < 1e-20f ? (x < 0.0f ? -1e-20f : 1e-20f) : x;
   return 1.0f / y;

@@ -81,6 +81,28 @@ SIGNATURES = {
             _p,  # stream
         ],
     },
+    "ubench_leaf": {
+        "rfw_ubench_leaf": [
+            _i,  # variant
+            _p, _i,  # tris, n_rows
+            _p,  # obj (9, 8, 128)
+            _i, _i,  # iters, copies
+            _p, _p,  # out_t, out_aux (copies, 8, 128)
+            _p,  # stream
+        ],
+    },
+    "ubench_grid": {
+        "rfw_ubench_grid": [
+            _i,  # variant
+            _p, _i,  # nodes, n_nodes
+            _p, _i,  # tris, n_tri_rows
+            _p, _i,  # insts, n_inst
+            _p, _i,  # roots, tlas_root
+            _p, _p, _p, _i,  # ray_o, ray_d, t_limit, n_rays
+            _p, _p, _p, _p, _p,  # out_t, out_prim, out_inst, out_u, out_v
+            _p,  # stream
+        ],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -173,14 +173,15 @@ def _rebase(ps: PreparedScene, ins, wo, wd):
     return ox, oy, oz, dx, dy, dz
 
 
-def _leaf_slots(ps: PreparedScene, first, count, obj, tcur):
-    """The kernels' treelet leaf test for n rays at once: the treelet at
-    triangle row `first` (n,), its first `count` (n,) slots, against the
-    object-space rays `obj` = (ox, oy, oz, dx, dy, dz) of (n,) each, with
-    hits limited to (T_MIN, tcur). Returns (ok, t, u, v), each (n, 64);
-    a treelet that would run past the arena passes nothing."""
-    treelets = ps.tris.reshape(-1, TREELET, 16)
-    ok_rows = first + count <= ps.tris.shape[0]
+def _leaf_slots(tris, first, count, obj, tcur):
+    """The kernels' treelet leaf test for n rays at once: the treelet of
+    the Woop rows `tris` (a prepared scene's) at triangle row `first` (n,),
+    its first `count` (n,) slots, against the object-space rays `obj` =
+    (ox, oy, oz, dx, dy, dz) of (n,) each, with hits limited to
+    (T_MIN, tcur). Returns (ok, t, u, v), each (n, 64); a treelet that
+    would run past the arena passes nothing."""
+    treelets = tris.reshape(-1, TREELET, 16)
+    ok_rows = first + count <= tris.shape[0]
     rec = treelets[torch.where(ok_rows, first >> TSHIFT, 0).long()]
     a = [rec[:, :, k] for k in range(12)]
     lox, loy, loz, ldx, ldy, ldz = (x[:, None] for x in obj)
@@ -236,8 +237,9 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
     start_inst: None walks both levels from the TLAS root; an (R,) i32
     tensor walks each ray in the BLAS of its instance from that BLAS root
     (the two-phase items walk), and -1 marks an empty item that walks
-    nothing. stats: a dict whose "boxes" and "tris" entries gain the child
-    box tests and triangle slot tests the walk made."""
+    nothing. stats: a dict whose "boxes", "leaves" and "tris" entries gain
+    the child box tests, treelet leaf visits and triangle slot tests the
+    walk made."""
     dev = ray_o.device
     R = ray_o.shape[0]
     i32 = torch.int32
@@ -294,11 +296,12 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
             rays = act[leaf]
             tcur = t_best[rays]
             ok, t, u, v = _leaf_slots(
-                ps, first, count,
+                ps.tris, first, count,
                 (ox[leaf], oy[leaf], oz[leaf], dx[leaf], dy[leaf], dz[leaf]), tcur)
             if stats is not None:
-                stats["tris"] = stats.get("tris", 0) + int(
-                    torch.where(first + count <= ps.tris.shape[0], count, 0).sum())
+                in_arena = first + count <= ps.tris.shape[0]
+                stats["leaves"] = stats.get("leaves", 0) + int(in_arena.sum())
+                stats["tris"] = stats.get("tris", 0) + int(torch.where(in_arena, count, 0).sum())
             if any_hit:
                 hit = ok.any(dim=1)
                 occluded[rays[hit]] = True

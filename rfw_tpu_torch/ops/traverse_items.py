@@ -110,7 +110,7 @@ def dense_items_plain(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
             continue
         first = (lo[sel] + j) << TSHIFT
         tcur = t_best[sel]
-        ok, t, u, v = _leaf_slots(ps, first, full[sel], tuple(x[sel] for x in obj), tcur)
+        ok, t, u, v = _leaf_slots(ps.tris, first, full[sel], tuple(x[sel] for x in obj), tcur)
         if stats is not None:
             stats["tris"] = stats.get("tris", 0) + TREELET * int(
                 (first + TREELET <= ps.tris.shape[0]).sum())
