@@ -13,21 +13,31 @@ an instance-heavy scene of 10,000 instances.
 
 Phases (any failed check raises, so the script exits nonzero):
   1. set-up: needs CUDA; builds the CUDA kernels from rfw_tpu_torch/csrc,
-     one nvcc per source, all at once;
+     one nvcc per source, all at once; prints ptxas's registers and spills
+     and K1/K2's launch shape (registers, resident blocks, theoretical
+     occupancy);
   2. scene build and upload;
-  3. K1/K2 against their plain torch version on 65,536 rays;
+  3. K1/K2 against their plain torch version on 65,536 rays (compare_call:
+     K2's flags identical; K1, which takes children nearest first, under
+     its gate: hit masks identical, t bit-identical but for at most 1 in
+     10^5 rays within 1e-5 relative, prim/inst/u/v bit-identical but for
+     counted exact-t ties), with the counting instance's per-ray counts
+     beside the plain walk's, the SIMD efficiency of the launch order, the
+     longest ray and the achieved occupancy;
   4. a 256x144 render through the kernels against the same render through
      the plain traversal (traversal="lockstep");
   5. the main path at 1920x1080 with two_phase="off": a warm-up sample
      whose traversal inputs are captured, each kernel against its plain
-     version on exactly those inputs (with both times), then 8 timed
+     version on exactly those inputs (compare_call, with both times), then 8 timed
      samples with the kernels' launch counters reset just before them;
   6. where the time goes: one sample with every stage bracketed by
      torch.cuda.synchronize(), one profiled sample (device time by
      kernel), and 4 samples traced with device activity only;
   7. two-phase on the flagship scene at 1920x1080 (its 512 instance-arena
      rows take the dense phase-A scan): the bounce rays of one sample
-     captured (with RFW_TP_SHADOW=1, so the bounce shadow rays too), K3 and
+     captured (with RFW_TP_SHADOW=1, so the bounce shadow rays too), K1
+     and K2 against their plain versions on the rays the two-phase
+     fallbacks retrace, K3 and
      K5 against their plain versions on exactly those items, the whole
      two-phase call against the classic kernel, its stages, K4 against its
      plain version on the same rays and the stages with phase A by K4
@@ -40,7 +50,8 @@ Phases (any failed check raises, so the script exits nonzero):
   8. an instance-heavy scene at 1920x1080 (10,000 instances: 20,480-
      triangle spheres among small icospheres and cubes; its arena is far
      over 512 rows, so phase A is the K4 tree walk): with RFW_DENSE_ITEMS=1
-     and RFW_TP_SHADOW=1, K4, K3, K5 and K6 (closest and any hit) against
+     and RFW_TP_SHADOW=1, K1/K2 on the fallbacks' rays, K4, K3, K5 and K6
+     (closest and any hit) against
      their plain versions on one sample's captured inputs and the stages
      of the two-phase call; then the A/B in turns: classic K1 against the
      two-phase call with and without K6 on the captured bounce rays, and
@@ -53,7 +64,8 @@ Phases (any failed check raises, so the script exits nonzero):
      their entry points (U1 in one block and in a block per SM, U2 over 1,
      8, 64 and 512 tiles with K1 on the same rays), and K1's time on the
      1080p primaries split by the cost model they give (call shape, leaf
-     tests, node visits, remainder).
+     tests, node visits, remainder), once by the plain walk's counts and
+     once by the kernel's own.
 Every number is printed beside the card's name and power limit. The line
 before the last two is {"kernels": [...]}: per kernel, its launches in its
 path's counted run, its largest disagreement with the plain version, its
@@ -62,7 +74,9 @@ calls, each timed on that call's captured inputs; for U1 one call of
 `full` at 512 iterations in one block, for U2 one `trivial` launch at 512
 tiles), the least time the card could take for the same work (bytes over
 3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is larger; U1's
-operations over the fp32 peak of the one SM it occupies) and which of the
+operations over the fp32 peak of the one SM it occupies; K1/K2's
+operations by whichever of the kernel's walk and the plain walk made
+fewer, the plain walk's alone in bound_ms_plain_counts) and which of the
 two bounds it; no single PyTorch call computes a BVH traversal or either
 microbenchmark, so library_ms is null. The last line is
 {"ok": true, "device": {...}}.
@@ -156,14 +170,61 @@ def timed(fn):
     return out, start.elapsed_time(stop)
 
 
+def bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32)
+
+
+def check_nearest(card, label, kh, ph, name) -> float:
+    """Hold K1's nearest-first walk against the plain walk in the TPU's
+    order: hit masks identical; t bit-identical where both hit, but for at
+    most 1 in 10^5 rays, each within 1e-5 relative and printed with which
+    walk found the nearer triangle (the other dropped its box at the
+    rounding edge, where a box's entry t lies past the triangle's t);
+    prim, inst, u and v bit-identical except on an exact tie (another
+    triangle at the plain walk's t, bit for bit), which is counted; misses
+    identical in every output. Returns the largest |t| difference."""
+    km, pm = kh.prim >= 0, ph.prim >= 0
+    masks = torch.equal(km, pm)
+    both = km & pm
+    same_t = bits(kh.t) == bits(ph.t)
+    diff = both & ~same_t
+    same_id = (kh.prim == ph.prim) & (kh.inst == ph.inst)
+    tie = both & same_t & ~same_id
+    same_uv = (bits(kh.u) == bits(ph.u)) & (bits(kh.v) == bits(ph.v))
+    bad_uv = int((both & same_t & same_id & ~same_uv).sum())
+    miss_bad = int((~km & ~pm & ~(same_t & same_id & same_uv)).sum())
+    n, n_diff = kh.t.numel(), int(diff.sum())
+    rel = ((kh.t - ph.t).abs() / ph.t.abs().clamp(min=1e-30))[diff]
+    t_err = (kh.t - ph.t).abs()[both].max().item() if both.any() else 0.0
+    log(card, f"{name}, {label}: hit masks identical {masks}, hits {int(both.sum())}, t "
+              f"bit-identical on all but {n_diff} (max rel {rel.max().item() if n_diff else 0.0:.3e}), "
+              f"exact-t ties (another triangle) {int(tie.sum())}, u/v differ on the same "
+              f"triangle {bad_uv}, misses differ {miss_bad}, bit-identical "
+              f"{all(torch.equal(a, b) for a, b in zip(kh, ph))}")
+    for i in diff.nonzero().squeeze(1)[:20].tolist():
+        nearer = "kernel" if kh.t[i] < ph.t[i] else "plain walk"
+        log(card, f"  ray {i}: kernel t {kh.t[i].item():.9g} prim {kh.prim[i].item()} inst "
+                  f"{kh.inst[i].item()}; plain t {ph.t[i].item():.9g} prim {ph.prim[i].item()} "
+                  f"inst {ph.inst[i].item()}; the {nearer} found the nearer triangle, the other "
+                  f"walk dropped its box at the rounding edge")
+    assert masks, f"{name} ({label}): hit masks differ"
+    assert n_diff <= n // 100000, f"{name} ({label}): t differs on {n_diff} of {n} rays"
+    assert n_diff == 0 or rel.max().item() <= 1e-5, f"{name} ({label}): t differs by > 1e-5"
+    assert bad_uv == 0 and miss_bad == 0, f"{name} ({label}): outputs differ off a tie"
+    return t_err
+
+
 def check_hits(card, label, kh, ph, name="K1 closest_hit kernel vs plain", exact=True,
                live=None) -> float:
     """Hold a closest-hit result against a reference: with `exact` (a
-    kernel against its plain version), every output bit-identical;
-    otherwise hit masks agree on >= 99.99% of the live rows (all rows, or
-    those of the mask `live`), and where both hit, t to 1e-5 relative, the
-    same (prim, inst) unless t ties within 1e-6, and u/v to 1e-4. Returns
-    the largest |t| difference where both hit."""
+    kernel against its plain version), every output bit-identical; with
+    exact="nearest", K1's nearest-first gate (check_nearest); otherwise hit
+    masks agree on >= 99.99% of the live rows (all rows, or those of the
+    mask `live`), and where both hit, t to 1e-5 relative, the same (prim,
+    inst) unless t ties within 1e-6, and u/v to 1e-4. Returns the largest
+    |t| difference where both hit."""
+    if exact == "nearest":
+        return check_nearest(card, label, kh, ph, name)
     km, pm = kh.prim >= 0, ph.prim >= 0
     agree = (km == pm) if live is None else (km == pm)[live]
     mask_agree = agree.float().mean().item() if agree.numel() else 1.0
@@ -211,12 +272,16 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def flops(stats: dict) -> int:
+    """fp32 operations of the counted box and slot tests."""
+    return FLOP_PER_BOX * stats.get("boxes", 0) + FLOP_PER_TRI * stats.get("tris", 0)
+
+
 def bound(n_bytes: int, stats: dict):
     """(ms, "bytes" | "operations"): the least time the card could take to
     move n_bytes and do the fp32 operations of the counted box and slot
     tests, at its published peaks."""
-    flops = FLOP_PER_BOX * stats.get("boxes", 0) + FLOP_PER_TRI * stats.get("tris", 0)
-    b_ms, f_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    b_ms, f_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops(stats) / FP32_FLOP_PER_S * 1e3
     return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
 
 
@@ -224,6 +289,7 @@ def compare_rays(card, ps, view, dev, seed):
     """K1/K2 against the plain torch walk on 65,536 rays: half subsampled
     1080p camera rays, half random directions from hit points."""
     from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.render.intersect import T_MAX
     from rfw_tpu_torch.render.wavefront import camera_rays_c
 
     rng = np.random.default_rng(seed)
@@ -246,18 +312,103 @@ def compare_rays(card, ps, view, dev, seed):
     t_lim = torch.from_numpy(rng.uniform(0.0, 60.0, N_CMP).astype(np.float32)).to(dev)
 
     label = f"{N_CMP} mixed rays"
-    k1_err = check_hits(card, label, tr.closest_hit(ps, ray_o, ray_d),
-                        tr.closest_hit_plain(ps, ray_o, ray_d))
-    k2_err = check_occluded(card, label, tr.occluded(ps, ray_o, ray_d, t_lim),
-                            tr.occluded_plain(ps, ray_o, ray_d, t_lim))
+    k1 = compare_call(card, label, "closest", ps, ray_o, ray_d, T_MAX, reps=20)
+    k2 = compare_call(card, label, "occluded", ps, ray_o, ray_d, t_lim, reps=20)
+    return dict(K1=k1["max_abs_err"], K2=k2["max_abs_err"])
 
-    k1_ms = cuda_ms(lambda: tr.closest_hit(ps, ray_o, ray_d), 20)
-    k1_plain = cuda_ms(lambda: tr.closest_hit_plain(ps, ray_o, ray_d), 2)
-    k2_ms = cuda_ms(lambda: tr.occluded(ps, ray_o, ray_d, t_lim), 20)
-    k2_plain = cuda_ms(lambda: tr.occluded_plain(ps, ray_o, ray_d, t_lim), 2)
-    log(card, f"K1 closest_hit at {N_CMP} rays: kernel {k1_ms:.4f} ms, plain {k1_plain:.2f} ms")
-    log(card, f"K2 occluded at {N_CMP} rays: kernel {k2_ms:.4f} ms, plain {k2_plain:.2f} ms")
-    return dict(K1=k1_err, K2=k2_err)
+
+def simd_efficiency(ws) -> tuple:
+    """(SIMD efficiency of the launch order, longest ray's steps) from per-
+    ray counts: a ray's steps are its node and leaf visits; a warp of 32
+    consecutive rays takes as many steps as its longest ray, so the
+    efficiency is the sum of the steps over 32 x the warps' longest."""
+    steps = (ws.nodes + ws.leaves).long()
+    if steps.numel() == 0:
+        return 1.0, 0
+    pad = (-steps.numel()) % 32
+    per_warp = torch.cat([steps, steps.new_zeros(pad)]).view(-1, 32).amax(dim=1)
+    return steps.sum().item() / max(32 * per_warp.sum().item(), 1), int(steps.max())
+
+
+def occupancy(shape: dict, warp_ns=None) -> tuple:
+    """(theoretical, achieved) occupancy: resident warps over the SM's
+    maximum by the launch shape, and the warps' summed lifetimes (their
+    first and last %globaltimer) over that maximum through the launch's
+    window; achieved is None where no warp wrote its times."""
+    max_warps = shape["threads_per_sm"] // 32
+    theory = shape["blocks_per_sm"] * shape["block"] // 32 / max_warps
+    if warp_ns is None or not bool((warp_ns[:, 1] > 0).any()):
+        return theory, None
+    w = warp_ns[warp_ns[:, 1] > 0].double()
+    window = (w[:, 1].max() - w[:, 0].min()).item()
+    return theory, (w[:, 1] - w[:, 0]).sum().item() / max(window * shape["sms"] * max_warps, 1.0)
+
+
+def compare_call(card, label, kind, ps, o, d, tl, reps=10) -> dict:
+    """K1 (kind "closest") or K2 ("occluded") against its plain version on
+    one call's inputs: K2's flags identical, K1 under its nearest-first
+    gate; the counting instance gives the same result as the default one,
+    and its per-ray counts stand beside the plain walk's (both kernels take
+    children nearest first, the plain walk in the TPU's order, so the
+    counts differ). Kernel time by CUDA events
+    over `reps` launches, plain time of the compared call, the bound from
+    the call's bytes (rays in and out, the scene arrays once) and the box
+    and slot tests of whichever walk made fewer operations (and, as
+    bound_ms_plain_counts, of the plain walk alone), the SIMD efficiency of
+    the launch order and the occupancy. Returns the call's row."""
+    from rfw_tpu_torch.ops import traverse as tr
+
+    n = o.shape[0]
+    tl_t = tl if isinstance(tl, torch.Tensor) else torch.full((n,), tl, device=o.device)
+    live = int((tl_t > 0).sum())
+    stats = {}
+    scene_b = nbytes(ps.nodes, ps.tris, ps.insts, ps.roots)
+    tag = f"{label}, {n} rays"
+    if kind == "closest":
+        name, fn, out_b = "K1", tr.closest_hit, 20
+        ref, plain_ms = timed(lambda: tr.closest_hit_plain(ps, o, d, tl, stats=stats))
+        got = fn(ps, o, d, tl)
+        err = check_hits(card, tag, got, ref, exact="nearest")
+        got_s, ks = fn(ps, o, d, tl, stats=True)
+        same = all(torch.equal(a, b) for a, b in zip(got_s, got))
+    else:
+        name, fn, out_b = "K2", tr.occluded, 1
+        ref, plain_ms = timed(lambda: tr.occluded_plain(ps, o, d, tl, stats=stats))
+        got = fn(ps, o, d, tl)
+        err = check_occluded(card, tag, got, ref)
+        got_s, ks = fn(ps, o, d, tl, stats=True)
+        same = torch.equal(got_s, got)
+    pr = stats["per_ray"]
+    counts_equal = all(torch.equal(a, b) for a, b in zip(ks[:4], pr[:4]))
+    assert same, f"{name} ({tag}): the counting instance gives another result"
+    ms = cuda_ms(lambda: fn(ps, o, d, tl), reps)
+    k_tot = {k: int(getattr(ks, k).sum()) for k in ("nodes", "boxes", "leaves", "tris")}
+    fewer = min(k_tot, stats, key=flops)
+    b_ms, by = bound(n * (28 + out_b) + scene_b, fewer)
+    b_plain, _ = bound(n * (28 + out_b) + scene_b, stats)
+    eff, longest = simd_efficiency(ks)
+    eff_p, longest_p = simd_efficiency(pr)
+    theory, achieved = occupancy(tr.launch_shape(kind == "occluded", True, n), ks.warp_ns)
+    theory_d, _ = occupancy(tr.launch_shape(kind == "occluded", False, n))
+    log(card, f"{name} {label}: {n} rays ({live} live), kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({by}; "
+              f"{'the kernel' if fewer is k_tot else 'the plain walk'}'s {fewer.get('boxes', 0)} "
+              f"box tests, {fewer.get('tris', 0)} slot tests; by the plain walk's counts "
+              f"{b_plain:.4f} ms)")
+    log(card, f"{name} {label} counts: kernel {k_tot['nodes']} node visits, {k_tot['boxes']} box "
+              f"tests, {k_tot['leaves']} leaf visits, {k_tot['tris']} slot tests; plain walk "
+              f"{stats.get('nodes', 0)}, {stats.get('boxes', 0)}, {stats.get('leaves', 0)}, "
+              f"{stats.get('tris', 0)}; per-ray counts equal {counts_equal}; SIMD efficiency of "
+              f"the launch order {eff:.4f} (plain walk's {eff_p:.4f}), longest ray {longest} steps "
+              f"(plain {longest_p}); occupancy theoretical {theory_d:.3f} (counting instance "
+              f"{theory:.3f}), achieved "
+              f"{'not measured' if achieved is None else f'{achieved:.3f}'} (counting instance)")
+    return dict(call=label, rays=n, live=live, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, bound_ms_plain_counts=b_plain, max_abs_err=err, nodes=stats.get("nodes", 0),
+                boxes=stats.get("boxes", 0), leaves=stats.get("leaves", 0),
+                tris=stats.get("tris", 0), kernel_counts=k_tot, counts_equal=counts_equal,
+                simd_efficiency=eff, longest_steps=longest, occupancy=theory_d,
+                achieved_occupancy=achieved)
 
 
 @contextmanager
@@ -298,34 +449,41 @@ def capture_traversal(run):
 
 def compare_main_path(card, calls):
     """Each kernel against its plain version on the captured inputs of one
-    1080p sample; kernel time by CUDA events over 10 launches, plain time
-    of the one compared call, and the bound from the call's bytes (rays in
-    and out, the scene arrays once) and the plain walk's box and slot test
-    counts. Returns per-kernel call rows."""
-    from rfw_tpu_torch.ops import traverse as tr
-
+    1080p sample (compare_call). Returns per-kernel call rows."""
     rows = defaultdict(list)
     for label, kind, ps, o, d, tl in calls:
-        n = o.shape[0]
-        tl_t = tl if isinstance(tl, torch.Tensor) else torch.full((n,), tl, device=o.device)
-        live = int((tl_t > 0).sum())
-        stats = {}
-        scene_b = nbytes(ps.nodes, ps.tris, ps.insts, ps.roots)
-        if kind == "closest":
-            ph, plain_ms = timed(lambda: tr.closest_hit_plain(ps, o, d, tl, stats=stats))
-            err = check_hits(card, f"{label}, {n} rays", tr.closest_hit(ps, o, d, tl), ph)
-            ms = cuda_ms(lambda: tr.closest_hit(ps, o, d, tl), 10)
-            b_ms, by = bound(n * (28 + 20) + scene_b, stats)
-        else:
-            po, plain_ms = timed(lambda: tr.occluded_plain(ps, o, d, tl, stats=stats))
-            err = check_occluded(card, f"{label}, {n} rays", tr.occluded(ps, o, d, tl), po)
-            ms = cuda_ms(lambda: tr.occluded(ps, o, d, tl), 10)
-            b_ms, by = bound(n * (28 + 1) + scene_b, stats)
-        log(card, f"{'K1' if kind == 'closest' else 'K2'} {label}: {n} rays ({live} live), "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({by}; "
-                  f"{stats.get('boxes', 0)} box tests, {stats.get('tris', 0)} slot tests)")
-        rows[kind].append(dict(call=label, rays=n, live=live, ms=ms, plain_ms=plain_ms,
-                               bound_ms=b_ms, bound_by=by, max_abs_err=err, **stats))
+        rows[kind].append(compare_call(card, label, kind, ps, o, d, tl))
+    return rows
+
+
+def fallback_calls(ps, o, d, tl, so, sd, stl, cfg):
+    """The two-phase calls on captured bounce rays and bounce shadow rays,
+    with their fallbacks' K1 and K2 calls recorded: [(label, kind, ray_o,
+    ray_d, t_limit)]; the calls still go to the kernels."""
+    from rfw_tpu_torch.ops import traverse_items as ti
+
+    calls = []
+
+    def recorder(kind, fn):
+        def record(ps_, ro, rd, rtl):
+            calls.append((f"{kind} fallback", kind, ro.clone(), rd.clone(), rtl.clone()))
+            return fn(ps_, ro, rd, rtl)
+        return record
+
+    kw = dict(K=cfg.tp_K, items_per_ray=cfg.tp_items_per_ray)
+    with patched(ti, closest_hit=recorder("closest", ti.closest_hit),
+                 occluded=recorder("occluded", ti.occluded)):
+        ti.twophase_closest_with_fallback(ps, o, d, tl, **kw)
+        ti.twophase_occluded_with_fallback(ps, so, sd, stl, **kw)
+    return calls
+
+
+def compare_fallback(card, scene_label, ps, o, d, tl, so, sd, stl, cfg):
+    """K1 and K2 against their plain versions on the rays the two-phase
+    fallbacks retrace (compare_call). Returns per-kernel call rows."""
+    rows = defaultdict(list)
+    for label, kind, ro, rd, rtl in fallback_calls(ps, o, d, tl, so, sd, stl, cfg):
+        rows[kind].append(compare_call(card, f"{scene_label} {label}", kind, ps, ro, rd, rtl))
     return rows
 
 
@@ -664,11 +822,12 @@ def ab_samples(card, dev, label, variants, sample, counted, n=3):
 
 
 def phase7(card, dev, scene, mats, atlas, lights, view, ps, base):
-    """Two-phase on the flagship scene at 1920x1080: K3/K5 against their
-    plain versions on one sample's captured bounce items, the two-phase
-    call against the classic kernel and by stage, and the A/B in turns,
-    with phase A by the dense scan (the default at 512 arena rows) and by
-    K4 (the gate forced to 0)."""
+    """Two-phase on the flagship scene at 1920x1080: K1/K2 on the rays the
+    fallbacks retrace and K3/K5 against their plain versions on one
+    sample's captured bounce items, the two-phase call against the classic
+    kernel and by stage, and the A/B in turns, with phase A by the dense
+    scan (the default at 512 arena rows) and by K4 (the gate forced to
+    0)."""
     from rfw_tpu_torch.ops import traverse as tr
     from rfw_tpu_torch.ops import traverse_items as ti
     from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
@@ -688,6 +847,7 @@ def phase7(card, dev, scene, mats, atlas, lights, view, ps, base):
               f"{so.shape[0]} bounce shadow rays ({int((stl > 0).sum())} live); instance arena "
               f"{ps.inst_min.shape[0]} rows -> phase A by "
               f"{'the dense scan' if ps.inst_min.shape[0] <= ti.DENSE_A_MAX_INST else 'K4'}")
+    fb = compare_fallback(card, "flagship", ps, o, d, tl, so, sd, stl, cfg)
     _, inst, o_s, d_s, tl_s, _ = packed_items(ps, o, d, tl, cfg.tp_K, cfg.tp_items_per_ray)
     k3 = compare_items(card, "K3", "bounce closest items", False, False, ps, inst, o_s, d_s, tl_s)
     _, inst, o_s, d_s, tl_s, _ = packed_items(ps, so, sd, stl, cfg.tp_K, cfg.tp_items_per_ray)
@@ -714,14 +874,14 @@ def phase7(card, dev, scene, mats, atlas, lights, view, ps, base):
         sample, counted="auto")
     for k in ("closest", "occluded", "items_closest"):
         assert launches[k] > 0, f"the two-phase main path never launched {k}"
-    return dict(K3=[k3], K5=[k5], K4=[k4], launches=launches)
+    return dict(K3=[k3], K5=[k5], K4=[k4], launches=launches, fallback=fb)
 
 
 def phase8(card, dev, base):
     """The instance-heavy scene at 1920x1080 with the dense items tier and
     two-phase bounce shadows: K4, K3, K5 and K6 against their plain
-    versions on one sample's captured inputs, the A/B in turns, and the
-    counted render."""
+    versions on one sample's captured inputs, K1 and K2 on the fallbacks'
+    rays, the A/B in turns, and the counted render."""
     from rfw_tpu_torch.convert import from_numpy_scene
     from rfw_tpu_torch.ops import traverse as tr
     from rfw_tpu_torch.ops import traverse_items as ti
@@ -757,6 +917,7 @@ def phase8(card, dev, base):
         kinds = [c[0] for c in calls]
         assert kinds == ["closest", "occluded"], f"two-phase calls seen: {kinds}"
         (_, _, o, d, tl), (_, _, so, sd, stl) = calls
+        fb = compare_fallback(card, "heavy", ps, o, d, tl, so, sd, stl, cfg)
         k4 = compare_entries(card, "heavy bounce rays", ps, o, d, tl, cfg.tp_K)
         rows = dict(K3=[], K5=[], K6=[])
         for label, (ro, rd, rtl), any_hit in (("bounce closest", (o, d, tl), False),
@@ -790,7 +951,7 @@ def phase8(card, dev, base):
     for k in ("closest", "occluded", "entries", "items_closest", "items_occluded",
               "dense_closest", "dense_occluded"):
         assert launches[k] > 0, f"the phase-8 path never launched {k}"
-    return dict(K4=[k4], launches=launches, **rows)
+    return dict(K4=[k4], launches=launches, fallback=fb, **rows)
 
 
 def run_tool(card, main, argv):
@@ -941,16 +1102,18 @@ def phase9(card, dev, ps, k1_primaries):
     slot_us = leafn["us_per_iter"]["full"] / (sms * ul.RAYS * 64)
     n = k1_primaries["rays"]
     shape_ms = top["init"]["launch_us"] / 1e3 * n / full_rays
-    leaf_ms = k1_primaries["tris"] * slot_us / 1e3
-    node_ms = k1_primaries["boxes"] * slot_us * FLOP_PER_BOX / FLOP_PER_TRI / 1e3
-    rest = k1_primaries["ms"] - shape_ms - leaf_ms - node_ms
-    log(card, f"K1 on the {n} primaries, {k1_primaries['ms']:.4f} ms: call shape (U2 init, "
-              f"scaled to {n} rays) {shape_ms:.4f} ms; leaf tests {leaf_ms:.4f} ms "
-              f"({k1_primaries['leaves']} leaf visits, {k1_primaries['tris']} slot tests x "
-              f"{slot_us * 1e6:.3f} ps, U1 full at {sms} blocks / 64 slots); node visits "
-              f"{node_ms:.4f} ms ({k1_primaries['boxes']} box tests at {FLOP_PER_BOX}/"
-              f"{FLOP_PER_TRI} of a slot test); remainder (fetch latency, divergence) "
-              f"{rest:.4f} ms ({100 * rest / k1_primaries['ms']:.1f}%)")
+    own = k1_primaries["kernel_counts"]
+    for whose, c in (("the plain walk's", k1_primaries), ("the kernel's own", own)):
+        leaf_ms = c["tris"] * slot_us / 1e3
+        node_ms = c["boxes"] * slot_us * FLOP_PER_BOX / FLOP_PER_TRI / 1e3
+        rest = k1_primaries["ms"] - shape_ms - leaf_ms - node_ms
+        log(card, f"K1 on the {n} primaries, {k1_primaries['ms']:.4f} ms, by {whose} counts: "
+                  f"call shape (U2 init, scaled to {n} rays) {shape_ms:.4f} ms; leaf tests "
+                  f"{leaf_ms:.4f} ms ({c['leaves']} leaf visits, {c['tris']} slot tests x "
+                  f"{slot_us * 1e6:.3f} ps, U1 full at {sms} blocks / 64 slots); node visits "
+                  f"{node_ms:.4f} ms ({c['boxes']} box tests at {FLOP_PER_BOX}/"
+                  f"{FLOP_PER_TRI} of a slot test); remainder (fetch latency, divergence) "
+                  f"{rest:.4f} ms ({100 * rest / k1_primaries['ms']:.1f}%)")
 
     u1_ops = ul.RAYS * 64 * FLOP_PER_TRI * U1_ITERS
     u1 = dict(call=f"full, {U1_ITERS} iterations, one block", ms=leaf1["ms_per_call"]["full"],
@@ -986,6 +1149,14 @@ def main() -> int:
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(card, f"ptxas {b.name}: " + line.strip())
+    for any_hit, stats in ((False, False), (True, False), (False, True), (True, True)):
+        s = tr.launch_shape(any_hit, stats, W * H)
+        theory, _ = occupancy(s)
+        log(card, f"{'K2' if any_hit else 'K1'}{' counting instance' if stats else ''}: "
+                  f"{s['registers']} registers, {s['local_bytes']} B local, "
+                  f"{s['shared_bytes']} B shared per block of {s['block']}, {s['blocks_per_sm']} "
+                  f"blocks per SM on {s['sms']} SMs -> theoretical occupancy {theory:.3f}; "
+                  f"{s['grid']} blocks launched for {W * H} rays")
 
     # ---- 2. scene
     from rfw_tpu_torch.convert import from_numpy_scene
@@ -1083,21 +1254,31 @@ def main() -> int:
     # ---- 9. the microbenchmarks U1 and U2
     ubench = phase9(card, dev, ps, main_rows["closest"][0])
 
-    def row(name, source, replaces, launches, rows, extra_err=()):
+    def row(name, source, replaces, launches, rows, extra_err=(), **extra):
         b = max(rows, key=lambda r: r["bound_ms"]) if rows else None
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches,
                     max_abs_err=max([*extra_err, *(r["max_abs_err"] for r in rows)]),
                     ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
                     bound_ms=sum(r["bound_ms"] for r in rows),
-                    bound_by=b["bound_by"] if b else None, library_ms=None, calls=rows)
+                    bound_by=b["bound_by"] if b else None, library_ms=None, calls=rows,
+                    **extra)
+
+    def fallback(kind):
+        return [r for fb in (tp["fallback"], heavy["fallback"]) for r in fb[kind]]
+
+    def walk_row(name, kind, cmp_err):
+        rows = main_rows[kind]
+        return row(name, "rfw_tpu_torch/csrc/traverse.cu", "rfw_tpu/ops/traverse.py:335",
+                   launches[kind], rows,
+                   [cmp_err, *(r["max_abs_err"] for r in fallback(kind))],
+                   bound_ms_plain_counts=sum(r["bound_ms_plain_counts"] for r in rows),
+                   fallback_calls=fallback(kind))
 
     items_src = "rfw_tpu_torch/csrc/traverse_items.cu"
     kernels = [
-        row("K1 closest_hit", "rfw_tpu_torch/csrc/traverse.cu", "rfw_tpu/ops/traverse.py:335",
-            launches["closest"], main_rows["closest"], [cmp["K1"]]),
-        row("K2 occluded", "rfw_tpu_torch/csrc/traverse.cu", "rfw_tpu/ops/traverse.py:335",
-            launches["occluded"], main_rows["occluded"], [cmp["K2"]]),
+        walk_row("K1 closest_hit", "closest", cmp["K1"]),
+        walk_row("K2 occluded", "occluded", cmp["K2"]),
         row("K3 items closest", items_src, "rfw_tpu/ops/traverse_items.py:107",
             tp["launches"]["items_closest"], tp["K3"], [r["max_abs_err"] for r in heavy["K3"]]),
         row("K5 items any-hit", items_src, "rfw_tpu/ops/traverse_items.py:107",

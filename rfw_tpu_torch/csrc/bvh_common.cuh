@@ -1,7 +1,8 @@
 // Shared device code of the traversal kernels (traverse.cu,
 // traverse_items.cu, traverse_entries.cu): the scene encoding, the instance
 // re-base, the slab test of one supernode child, the treelet leaf test and
-// the stackful per-ray BVH walk.
+// the stackful per-ray BVH walk of the items kernels (K1/K2 in traverse.cu
+// walk with their own loop over the same helpers).
 //
 // Scene encoding (rfw_tpu_torch/ops/traverse.py::prepare_scene):
 //   * 8-wide supernodes, one row of 64 int32 each: 48 box-float bit
@@ -62,14 +63,10 @@ __device__ __forceinline__ float safe_inv(float x) {
   return 1.0f / y;
 }
 
-// Re-base the world ray into the object space of instance row `row`
-// (world->object 3x4 affine, 16 floats per row; the last row is identity).
-__device__ __forceinline__ Ray set_obj(const float4* __restrict__ insts, int row,
-                                       float wox, float woy, float woz,
-                                       float wdx, float wdy, float wdz) {
-  const float4 m0 = __ldg(insts + 4 * row + 0);
-  const float4 m1 = __ldg(insts + 4 * row + 1);
-  const float4 m2 = __ldg(insts + 4 * row + 2);
+// The world ray through the 3x4 affine of rows m0, m1, m2.
+__device__ __forceinline__ Ray rebase(const float4& m0, const float4& m1, const float4& m2,
+                                      float wox, float woy, float woz,
+                                      float wdx, float wdy, float wdz) {
   Ray r;
   r.ox = __fadd_rn(dot3(m0.x, m0.y, m0.z, wox, woy, woz), m0.w);
   r.oy = __fadd_rn(dot3(m1.x, m1.y, m1.z, wox, woy, woz), m1.w);
@@ -83,24 +80,39 @@ __device__ __forceinline__ Ray set_obj(const float4* __restrict__ insts, int row
   return r;
 }
 
-// Slab test of child c of a supernode row: entry/exit t in (tn, tf).
+// Re-base the world ray into the object space of instance row `row`
+// (world->object 3x4 affine, 16 floats per row; the last row is identity).
+__device__ __forceinline__ Ray set_obj(const float4* __restrict__ insts, int row,
+                                       float wox, float woy, float woz,
+                                       float wdx, float wdy, float wdz) {
+  return rebase(__ldg(insts + 4 * row + 0), __ldg(insts + 4 * row + 1),
+                __ldg(insts + 4 * row + 2), wox, woy, woz, wdx, wdy, wdz);
+}
+
+// Slab test of the box (x0, y0, z0)-(x1, y1, z1): entry/exit t in (tn, tf).
 // Returns true when the box has tn <= tf and tf > T_MIN.
+__device__ __forceinline__ bool slab(float x0, float y0, float z0, float x1, float y1,
+                                     float z1, const Ray& r, float* tn_out) {
+  const float tx0 = (x0 - r.ox) * r.ix;
+  const float tx1 = (x1 - r.ox) * r.ix;
+  const float ty0 = (y0 - r.oy) * r.iy;
+  const float ty1 = (y1 - r.oy) * r.iy;
+  const float tz0 = (z0 - r.oz) * r.iz;
+  const float tz1 = (z1 - r.oz) * r.iz;
+  const float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+  const float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+  *tn_out = tn;
+  return tn <= tf && tf > kTMin;
+}
+
+// Slab test of child c of a supernode row (see slab).
 __device__ __forceinline__ bool child_slab(const int* __restrict__ row, int c,
                                            const Ray& r, float* tn_out) {
   const float2* box = reinterpret_cast<const float2*>(row);
   const float2 b01 = __ldg(box + 3 * c + 0);  // min x, min y
   const float2 b23 = __ldg(box + 3 * c + 1);  // min z, max x
   const float2 b45 = __ldg(box + 3 * c + 2);  // max y, max z
-  const float tx0 = (b01.x - r.ox) * r.ix;
-  const float tx1 = (b23.y - r.ox) * r.ix;
-  const float ty0 = (b01.y - r.oy) * r.iy;
-  const float ty1 = (b45.x - r.oy) * r.iy;
-  const float tz0 = (b23.x - r.oz) * r.iz;
-  const float tz1 = (b45.y - r.oz) * r.iz;
-  const float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
-  const float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-  *tn_out = tn;
-  return tn <= tf && tf > kTMin;
+  return slab(b01.x, b01.y, b23.x, b23.y, b45.x, b45.y, r, tn_out);
 }
 
 // A box stored inverted (min > max on some axis) marks an unused slot.
@@ -110,35 +122,52 @@ __device__ __forceinline__ bool child_box_valid(const int* __restrict__ row, int
          __ldg(b + 2) <= __ldg(b + 5);
 }
 
-// Test the `count` Woop slots of the treelet starting at triangle row
-// `first` against the object-space ray. Closest hit: lowers `best` and
+// Woop test of one slot (rows a, b, c: u, v, w of the affine) against the
+// object-space ray: (t, u, v), and whether it passes in (T_MIN, best).
+__device__ __forceinline__ bool slot_hit(const float4& a, const float4& b, const float4& c,
+                                         const Ray& r, float best, float& t, float& u,
+                                         float& v) {
+  const float opu = __fadd_rn(dot3(a.x, a.y, a.z, r.ox, r.oy, r.oz), a.w);
+  const float opv = __fadd_rn(dot3(b.x, b.y, b.z, r.ox, r.oy, r.oz), b.w);
+  const float opw = __fadd_rn(dot3(c.x, c.y, c.z, r.ox, r.oy, r.oz), c.w);
+  const float dpu = dot3(a.x, a.y, a.z, r.dx, r.dy, r.dz);
+  const float dpv = dot3(b.x, b.y, b.z, r.dx, r.dy, r.dz);
+  const float dpw = dot3(c.x, c.y, c.z, r.dx, r.dy, r.dz);
+  t = -opw / dpw;  // degenerate slots: NaN/inf, never pass
+  u = __fadd_rn(opu, __fmul_rn(t, dpu));
+  v = __fadd_rn(opv, __fmul_rn(t, dpv));
+  return u >= -1e-7f && v >= -1e-7f && u + v <= 1.0000001f && t > kTMin && t < best;
+}
+
+// Test the `count` (>= 1) Woop slots of the treelet starting at triangle
+// row `first` against the object-space ray. Closest hit: lowers `best` and
 // sets (win, bu, bv) on a strictly nearer hit (lowest slot among ties).
-// Any hit: returns true at the first slot that passes.
+// Any hit: returns true at the first slot that passes. The next slot's
+// three loads (u, v, w rows) are issued before the current slot's test, so
+// a slot's fetch latency hides behind its predecessor's arithmetic; the
+// last slot reloads itself rather than read past `count`. The slots are
+// tested in the same order either way, so the winner does not change.
 template <bool kAnyHit>
 __device__ __forceinline__ bool leaf_test(const float4* __restrict__ tris, int first,
                                           int count, const Ray& r, float& best,
                                           float& bu, float& bv, int& win) {
   const float4* slot = tris + 4 * static_cast<size_t>(first);
+  float4 a = __ldg(slot + 0), b = __ldg(slot + 1), c = __ldg(slot + 2);
+#pragma unroll 2
   for (int j = 0; j < count; ++j) {
-    const float4 a = __ldg(slot + 4 * j + 0);  // u row
-    const float4 b = __ldg(slot + 4 * j + 1);  // v row
-    const float4 c = __ldg(slot + 4 * j + 2);  // w row
-    const float opu = __fadd_rn(dot3(a.x, a.y, a.z, r.ox, r.oy, r.oz), a.w);
-    const float opv = __fadd_rn(dot3(b.x, b.y, b.z, r.ox, r.oy, r.oz), b.w);
-    const float opw = __fadd_rn(dot3(c.x, c.y, c.z, r.ox, r.oy, r.oz), c.w);
-    const float dpu = dot3(a.x, a.y, a.z, r.dx, r.dy, r.dz);
-    const float dpv = dot3(b.x, b.y, b.z, r.dx, r.dy, r.dz);
-    const float dpw = dot3(c.x, c.y, c.z, r.dx, r.dy, r.dz);
-    const float t = -opw / dpw;  // degenerate slots: NaN/inf, never pass
-    const float u = __fadd_rn(opu, __fmul_rn(t, dpu));
-    const float v = __fadd_rn(opv, __fmul_rn(t, dpv));
-    if (u >= -1e-7f && v >= -1e-7f && u + v <= 1.0000001f && t > kTMin && t < best) {
+    const float4* nx = slot + 4 * min(j + 1, count - 1);
+    const float4 na = __ldg(nx + 0), nb = __ldg(nx + 1), nc = __ldg(nx + 2);
+    float t, u, v;
+    if (slot_hit(a, b, c, r, best, t, u, v)) {
       if (kAnyHit) return true;
       best = t;
       bu = u;
       bv = v;
       win = j;
     }
+    a = na;
+    b = nb;
+    c = nc;
   }
   return false;
 }

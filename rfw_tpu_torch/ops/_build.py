@@ -43,8 +43,10 @@ SIGNATURES = {
             _p, _p, _p, _i,  # ray_o, ray_d, t_limit, n_rays
             _p, _p, _p, _p, _p,  # out_t, out_prim, out_inst, out_u, out_v
             _p,  # out_occluded
+            _p, _p, _p,  # next_ray, out_stats, warp_ns
             _p,  # stream
         ],
+        "rfw_traverse_info": [_i, _i, _i, _p],  # any_hit, stats, n_rays, out[8]
     },
     "traverse_items": {
         "rfw_items": [

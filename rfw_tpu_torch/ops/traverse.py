@@ -9,11 +9,16 @@ CUDA kernel in `rfw_tpu_torch/csrc/traverse.cu`, built at first use by
     arrays for the kernel, built on the scene's device from a TraceScene;
   * `closest_hit` / `occluded` — counterparts of `pallas_closest_hit` /
     `pallas_occluded`. For tensors on the card they launch the kernel (or
-    raise); for tensors on the CPU they run the plain version;
+    raise); for tensors on the CPU they run the plain version. With
+    `stats=True` they also return the walk's per-ray counts (`WalkStats`);
+  * `launch_shape` — the kernel's block, residency, registers and grid;
   * `closest_hit_plain` / `occluded_plain` — a vectorised torch lockstep
-    walk over the same prepared arrays, one lane per ray, with the kernel's
-    per-ray semantics (visit order, leaf test, tie rules). The CPU tests
-    use it, and the smoke check compares the kernel with it on the card.
+    walk over the same prepared arrays, one lane per ray, in the TPU
+    kernels' visit order with their leaf test and tie rules. The kernels
+    take children nearest first, so they visit fewer nodes (other per-ray
+    counts) and agree with it on occlusion flags and on t, and on
+    prim/inst/u/v up to exact-t ties. The CPU tests use it, and the smoke
+    check compares the kernels with it on the card.
     The two-phase items walk (`ops.traverse_items`) is the same walk
     entered at an instance's BLAS root;
   * `LAUNCHES` — how many times each kernel was launched.
@@ -22,7 +27,7 @@ CUDA kernel in `rfw_tpu_torch/csrc/traverse.cu`, built at first use by
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,6 +42,25 @@ MAX_ITERS = 1 << 19
 
 #: kernel launches per kind; each wrapper adds one where it launches
 LAUNCHES = {"closest": 0, "occluded": 0}
+
+
+class WalkStats(NamedTuple):
+    """Per-ray counts of one traversal call, each (R,) int32: internal-node
+    visits, child box tests (the non-empty child slots of the visited
+    nodes), treelet leaf visits and triangle slot tests (a visited leaf's
+    `count`, also where an any-hit walk stops inside it). `warp_ns` is the
+    kernel's (warps, 2) int64 first and last %globaltimer of each launched
+    warp, None for the plain walk.
+
+    rfw_tpu's `stats=True` (`pallas_closest_hit`) stamps one while-iteration
+    count per Pallas program, whose walk also visits the empty TLAS slots
+    this port skips, so the two are not compared."""
+
+    nodes: torch.Tensor
+    boxes: torch.Tensor
+    leaves: torch.Tensor
+    tris: torch.Tensor
+    warp_ns: Optional[torch.Tensor] = None
 
 
 class PreparedScene(NamedTuple):
@@ -237,9 +261,10 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
     start_inst: None walks both levels from the TLAS root; an (R,) i32
     tensor walks each ray in the BLAS of its instance from that BLAS root
     (the two-phase items walk), and -1 marks an empty item that walks
-    nothing. stats: a dict whose "boxes", "leaves" and "tris" entries gain
-    the child box tests, treelet leaf visits and triangle slot tests the
-    walk made."""
+    nothing. stats: a dict whose "nodes", "boxes", "leaves" and "tris"
+    entries gain the internal-node visits, child box tests, treelet leaf
+    visits and triangle slot tests the walk made, and whose "per_ray" entry
+    becomes the same counts per ray (`WalkStats`)."""
     dev = ray_o.device
     R = ray_o.shape[0]
     i32 = torch.int32
@@ -264,6 +289,8 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
     sp = torch.zeros(R, dtype=torch.int64, device=dev)
     stack = torch.zeros((R, STACK_DEPTH, 2), dtype=i32, device=dev)
     act = torch.arange(R, device=dev)
+    if stats is not None:
+        per_ray = WalkStats(*(torch.zeros(R, dtype=i32, device=dev) for _ in range(4)))
 
     for _ in range(MAX_ITERS):
         if act.numel() == 0:
@@ -300,8 +327,11 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
                 (ox[leaf], oy[leaf], oz[leaf], dx[leaf], dy[leaf], dz[leaf]), tcur)
             if stats is not None:
                 in_arena = first + count <= ps.tris.shape[0]
+                tested = torch.where(in_arena, count, 0).to(i32)
+                per_ray.leaves.index_add_(0, rays, in_arena.to(i32))
+                per_ray.tris.index_add_(0, rays, tested)
                 stats["leaves"] = stats.get("leaves", 0) + int(in_arena.sum())
-                stats["tris"] = stats.get("tris", 0) + int(torch.where(in_arena, count, 0).sum())
+                stats["tris"] = stats.get("tris", 0) + int(tested.sum())
             if any_hit:
                 hit = ok.any(dim=1)
                 occluded[rays[hit]] = True
@@ -335,8 +365,11 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
             next_inst = cur_inst.clone()
             spi = s[inner]
             if stats is not None:
-                stats["boxes"] = stats.get("boxes", 0) + int(
-                    (~((cd < 0) & (cn == 0))).sum())
+                boxes_r = (~((cd < 0) & (cn == 0))).sum(dim=1).to(i32)
+                per_ray.nodes.index_add_(0, rays, torch.ones_like(boxes_r))
+                per_ray.boxes.index_add_(0, rays, boxes_r)
+                stats["nodes"] = stats.get("nodes", 0) + int(inner.numel())
+                stats["boxes"] = stats.get("boxes", 0) + int(boxes_r.sum())
             for c in range(ARITY):
                 code, cnt = cd[:, c], cn[:, c]
                 tn, tf = _child_slab(bx, c, obj_o, inv)
@@ -368,6 +401,8 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
         if any_hit and bool(finished.any()):
             act = act[~finished]
 
+    if stats is not None:
+        stats["per_ray"] = per_ray
     if any_hit:
         return occluded
     return Hit(t_best, prim, hit_inst, hit_u, hit_v)
@@ -425,7 +460,25 @@ def stream_of(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
+def launch_shape(any_hit: bool, stats: bool = False, n_rays: int = 0, device=None) -> dict:
+    """The launch shape of one instance of the kernel on `device` (default:
+    the current CUDA device): block threads, resident blocks per SM, SMs,
+    registers per thread, local bytes per thread, static shared bytes per
+    block, threads per SM, and the blocks launched for `n_rays`."""
+    from rfw_tpu_torch.ops._build import load_library
+
+    lib = load_library("traverse")
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = lib.rfw_traverse_info(int(any_hit), int(stats), int(n_rays), out)
+    if rc != 0:
+        raise RuntimeError(f"traverse kernel query failed: cudaError {rc}")
+    keys = ("block", "blocks_per_sm", "sms", "registers", "local_bytes", "shared_bytes",
+            "threads_per_sm", "grid")
+    return dict(zip(keys, out))
+
+
+def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool, stats: bool):
     from rfw_tpu_torch.ops._build import load_library
 
     check_rays(ps, ray_o, ray_d)
@@ -433,48 +486,68 @@ def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool):
     R = ray_o.shape[0]
     dev = ray_o.device
     tl = _t_limit(t_limit, R, dev)
-    f32 = torch.float32
+    f32, i32 = torch.float32, torch.int32
     if any_hit:
         occ = torch.empty(R, dtype=torch.bool, device=dev)
         t = prim = inst = u = v = None
     else:
         t = torch.empty(R, dtype=f32, device=dev)
-        prim = torch.empty(R, dtype=torch.int32, device=dev)
-        inst = torch.empty(R, dtype=torch.int32, device=dev)
+        prim = torch.empty(R, dtype=i32, device=dev)
+        inst = torch.empty(R, dtype=i32, device=dev)
         u = torch.empty(R, dtype=f32, device=dev)
         v = torch.empty(R, dtype=f32, device=dev)
         occ = None
-    if R == 0:
-        return occ if any_hit else Hit(t, prim, inst, u, v)
+    counts = warp_ns = None
+    if stats:
+        counts = torch.zeros((R, 4), dtype=i32, device=dev)
+        grid = launch_shape(any_hit, True, R, dev)
+        warp_ns = torch.zeros((grid["grid"] * grid["block"] // 32, 2), dtype=torch.int64,
+                              device=dev)
+    out = occ if any_hit else Hit(t, prim, inst, u, v)
+    if R > 0:
+        next_ray = torch.zeros(1, dtype=i32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.rfw_traverse(
+                int(any_hit),
+                ptr(ps.nodes), ps.nodes.shape[0],
+                ptr(ps.tris), ps.tris.shape[0],
+                ptr(ps.insts), ps.n_inst,
+                ptr(ps.roots), ps.tlas_root,
+                ptr(ray_o), ptr(ray_d), ptr(tl), R,
+                ptr(t), ptr(prim), ptr(inst), ptr(u), ptr(v), ptr(occ),
+                ptr(next_ray), ptr(counts), ptr(warp_ns),
+                stream_of(dev),
+            )
+        if rc != 0:
+            raise RuntimeError(f"traverse kernel launch failed: cudaError {rc}")
+        LAUNCHES["occluded" if any_hit else "closest"] += 1
+    if not stats:
+        return out
+    return out, WalkStats(*counts.unbind(1), warp_ns=warp_ns)
 
-    with torch.cuda.device(dev):
-        rc = lib.rfw_traverse(
-            int(any_hit),
-            ptr(ps.nodes), ps.nodes.shape[0],
-            ptr(ps.tris), ps.tris.shape[0],
-            ptr(ps.insts), ps.n_inst,
-            ptr(ps.roots), ps.tlas_root,
-            ptr(ray_o), ptr(ray_d), ptr(tl), R,
-            ptr(t), ptr(prim), ptr(inst), ptr(u), ptr(v), ptr(occ),
-            stream_of(dev),
-        )
-    if rc != 0:
-        raise RuntimeError(f"traverse kernel launch failed: cudaError {rc}")
-    LAUNCHES["occluded" if any_hit else "closest"] += 1
-    return occ if any_hit else Hit(t, prim, inst, u, v)
+
+def _plain_stats(plain, ps, ray_o, ray_d, t_limit):
+    counts = {}
+    out = plain(ps, ray_o, ray_d, t_limit, stats=counts)
+    return out, counts["per_ray"]
 
 
-def closest_hit(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX) -> Hit:
+def closest_hit(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX, stats: bool = False):
     """Closest hit of (R,3) rays: the CUDA kernel for tensors on the card,
-    the plain version for tensors on the CPU."""
+    the plain version for tensors on the CPU. With `stats`, (Hit, WalkStats)."""
     if ray_o.device.type == "cpu":
+        if stats:
+            return _plain_stats(closest_hit_plain, ps, ray_o, ray_d, t_limit)
         return closest_hit_plain(ps, ray_o, ray_d, t_limit)
-    return _launch(ps, ray_o, ray_d, t_limit, any_hit=False)
+    return _launch(ps, ray_o, ray_d, t_limit, any_hit=False, stats=stats)
 
 
-def occluded(ps: PreparedScene, ray_o, ray_d, t_limit) -> torch.Tensor:
+def occluded(ps: PreparedScene, ray_o, ray_d, t_limit, stats: bool = False):
     """Occlusion of (R,3) rays within (T_MIN, t_limit): the CUDA kernel for
-    tensors on the card, the plain version for tensors on the CPU."""
+    tensors on the card, the plain version for tensors on the CPU. With
+    `stats`, (flags, WalkStats)."""
     if ray_o.device.type == "cpu":
+        if stats:
+            return _plain_stats(occluded_plain, ps, ray_o, ray_d, t_limit)
         return occluded_plain(ps, ray_o, ray_d, t_limit)
-    return _launch(ps, ray_o, ray_d, t_limit, any_hit=True)
+    return _launch(ps, ray_o, ray_d, t_limit, any_hit=True, stats=stats)

@@ -14,9 +14,13 @@ Tolerances:
     relative in the oracle), since exact-t ties may fall either way;
   * u, v: atol 1e-4 vs the oracle, atol 2e-3 vs the Pallas kernel (its t
     error times the ray's travel in unit-triangle coordinates);
-  * the CUDA kernel vs the plain walk: identical (both round every
-    operation alike; the kernel writes its re-base and leaf test with
-    unfused round-to-nearest intrinsics).
+  * the CUDA kernel vs the plain walk (both round every operation alike;
+    the kernel writes its re-base and leaf test with unfused
+    round-to-nearest intrinsics; its walk takes children nearest first):
+    K2's flags identical; K1 with identical hit masks, t bit-identical
+    where both hit (at most 1 in 10^5 rays may differ, within 1e-5
+    relative: a box dropped at the rounding edge), and prim, inst, u, v
+    bit-identical except on an exact-t tie with another triangle.
 """
 
 import jax.numpy as jnp
@@ -178,8 +182,18 @@ def test_kernel_matches_plain_on_card(setup):
     before = dict(tr.LAUNCHES)
     k = tr.closest_hit(ps, o, d)
     p = tr.closest_hit_plain(ps, o, d)
+    km, pm = k.prim >= 0, p.prim >= 0
+    assert torch.equal(km, pm)
+    both = km & pm
+    same_t = k.t.view(torch.int32) == p.t.view(torch.int32)
+    diff = both & ~same_t
+    assert int(diff.sum()) <= R // 100000
+    rel = (k.t - p.t).abs() / p.t.abs()
+    assert not bool(diff.any()) or float(rel[diff].max()) <= 1e-5
+    tie = both & same_t & ((k.prim != p.prim) | (k.inst != p.inst))
+    keep = ~tie & ~diff
     for a, b in zip(k, p):
-        assert torch.equal(a, b)
+        assert torch.equal(a[keep], b[keep])
     tl = torch.full((R,), 3.0, device="cuda")
     assert torch.equal(tr.occluded(ps, o, d, tl), tr.occluded_plain(ps, o, d, tl))
     assert tr.LAUNCHES["closest"] == before["closest"] + 1
