@@ -14,8 +14,9 @@ an instance-heavy scene of 10,000 instances.
 Phases (any failed check raises, so the script exits nonzero):
   1. set-up: needs CUDA; builds the CUDA kernels from rfw_tpu_torch/csrc,
      one nvcc per source, all at once; prints ptxas's registers and spills
-     and K1/K2's launch shape (registers, resident blocks, theoretical
-     occupancy);
+     and the launch shape (registers, resident blocks, theoretical
+     occupancy) of each persistent walk kernel, K1/K2, K3/K5 and K4, and
+     of its counting instance;
   2. scene build and upload;
   3. K1/K2 against their plain torch version on 65,536 rays (compare_call:
      K2's flags identical; K1, which takes children nearest first, under
@@ -37,10 +38,14 @@ Phases (any failed check raises, so the script exits nonzero):
      rows take the dense phase-A scan): the bounce rays of one sample
      captured (with RFW_TP_SHADOW=1, so the bounce shadow rays too), K1
      and K2 against their plain versions on the rays the two-phase
-     fallbacks retrace, K3 and
-     K5 against their plain versions on exactly those items, the whole
+     fallbacks retrace, K3 and K5 against their plain versions on exactly
+     those items (compare_items: K5's flags identical; K3, nearest first,
+     under K1's gate over the live slots; both with the counts, SIMD
+     efficiency, occupancy and bound of compare_call), the whole
      two-phase call against the classic kernel, its stages, K4 against its
-     plain version on the same rays and the stages with phase A by K4
+     plain version on the same rays (compare_entries: t_entry
+     bit-identical, ids up to counted equal-t swaps at the K-th kept t;
+     counts as above) and the stages with phase A by K4
      (the dense-scan gate forced to 0), then the A/B in turns (the
      variants in order, then in reverse): classic K1 against the
      two-phase call with either phase A on the captured bounce rays, and
@@ -50,8 +55,9 @@ Phases (any failed check raises, so the script exits nonzero):
   8. an instance-heavy scene at 1920x1080 (10,000 instances: 20,480-
      triangle spheres among small icospheres and cubes; its arena is far
      over 512 rows, so phase A is the K4 tree walk): with RFW_DENSE_ITEMS=1
-     and RFW_TP_SHADOW=1, K1/K2 on the fallbacks' rays, K4, K3, K5 and K6
-     (closest and any hit) against
+     and RFW_TP_SHADOW=1, K1/K2 on the fallbacks' rays, K4 (on the bounce
+     rays and on the bounce shadow rays, its two launches a sample), K3,
+     K5 and K6 (closest and any hit) against
      their plain versions on one sample's captured inputs and the stages
      of the two-phase call; then the A/B in turns: classic K1 against the
      two-phase call with and without K6 on the captured bounce rays, and
@@ -74,7 +80,7 @@ calls, each timed on that call's captured inputs; for U1 one call of
 `full` at 512 iterations in one block, for U2 one `trivial` launch at 512
 tiles), the least time the card could take for the same work (bytes over
 3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is larger; U1's
-operations over the fp32 peak of the one SM it occupies; K1/K2's
+operations over the fp32 peak of the one SM it occupies; K1-K5's
 operations by whichever of the kernel's walk and the plain walk made
 fewer, the plain walk's alone in bound_ms_plain_counts) and which of the
 two bounds it; no single PyTorch call computes a BVH traversal or either
@@ -174,15 +180,17 @@ def bits(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32)
 
 
-def check_nearest(card, label, kh, ph, name) -> float:
-    """Hold K1's nearest-first walk against the plain walk in the TPU's
-    order: hit masks identical; t bit-identical where both hit, but for at
-    most 1 in 10^5 rays, each within 1e-5 relative and printed with which
-    walk found the nearer triangle (the other dropped its box at the
-    rounding edge, where a box's entry t lies past the triangle's t);
+def check_nearest(card, label, kh, ph, name, live=None) -> float:
+    """Hold a nearest-first walk (K1, K3) against the plain walk in the
+    TPU's order: hit masks identical; t bit-identical where both hit, but
+    for at most 1 in 10^5 live rows (all rows, or those of the mask `live`:
+    K3's items, not its empty slots), each within 1e-5 relative and printed
+    with which walk found the nearer triangle (the other dropped its box at
+    the rounding edge, where a box's entry t lies past the triangle's t);
     prim, inst, u and v bit-identical except on an exact tie (another
-    triangle at the plain walk's t, bit for bit), which is counted; misses
-    identical in every output. Returns the largest |t| difference."""
+    triangle at the plain walk's t, bit for bit), which is counted; misses,
+    empty slots among them, identical in every output. Returns the largest
+    |t| difference."""
     km, pm = kh.prim >= 0, ph.prim >= 0
     masks = torch.equal(km, pm)
     both = km & pm
@@ -193,7 +201,8 @@ def check_nearest(card, label, kh, ph, name) -> float:
     same_uv = (bits(kh.u) == bits(ph.u)) & (bits(kh.v) == bits(ph.v))
     bad_uv = int((both & same_t & same_id & ~same_uv).sum())
     miss_bad = int((~km & ~pm & ~(same_t & same_id & same_uv)).sum())
-    n, n_diff = kh.t.numel(), int(diff.sum())
+    n = kh.t.numel() if live is None else int(live.sum())
+    n_diff = int(diff.sum())
     rel = ((kh.t - ph.t).abs() / ph.t.abs().clamp(min=1e-30))[diff]
     t_err = (kh.t - ph.t).abs()[both].max().item() if both.any() else 0.0
     log(card, f"{name}, {label}: hit masks identical {masks}, hits {int(both.sum())}, t "
@@ -218,13 +227,13 @@ def check_hits(card, label, kh, ph, name="K1 closest_hit kernel vs plain", exact
                live=None) -> float:
     """Hold a closest-hit result against a reference: with `exact` (a
     kernel against its plain version), every output bit-identical; with
-    exact="nearest", K1's nearest-first gate (check_nearest); otherwise hit
+    exact="nearest", the nearest-first gate (check_nearest); otherwise hit
     masks agree on >= 99.99% of the live rows (all rows, or those of the
     mask `live`), and where both hit, t to 1e-5 relative, the same (prim,
     inst) unless t ties within 1e-6, and u/v to 1e-4. Returns the largest
     |t| difference where both hit."""
     if exact == "nearest":
-        return check_nearest(card, label, kh, ph, name)
+        return check_nearest(card, label, kh, ph, name, live)
     km, pm = kh.prim >= 0, ph.prim >= 0
     agree = (km == pm) if live is None else (km == pm)[live]
     mask_agree = agree.float().mean().item() if agree.numel() else 1.0
@@ -344,18 +353,61 @@ def occupancy(shape: dict, warp_ns=None) -> tuple:
     return theory, (w[:, 1] - w[:, 0]).sum().item() / max(window * shape["sms"] * max_warps, 1.0)
 
 
+def walk_counts(card, tag, ks, stats, n_bytes, shapes) -> dict:
+    """A persistent walk kernel's per-ray counts (ks, from its counting
+    instance) beside its plain version's (stats: totals and "per_ray"), the
+    bound from n_bytes and the box and slot tests of whichever made fewer
+    operations (and of the plain walk alone), the SIMD efficiency of the
+    launch order, the longest ray or item, and the theoretical and achieved
+    occupancy (shapes: the default and the counting instance's launch
+    shapes). Logs the counts; returns the row's fields."""
+    pr = stats["per_ray"]
+    counts_equal = all(torch.equal(a, b) for a, b in zip(ks[:4], pr[:4]))
+    k_tot = {k: int(getattr(ks, k).sum()) for k in ("nodes", "boxes", "leaves", "tris")}
+    fewer = min(k_tot, stats, key=flops)
+    b_ms, by = bound(n_bytes, fewer)
+    b_plain, _ = bound(n_bytes, stats)
+    eff, longest = simd_efficiency(ks)
+    eff_p, longest_p = simd_efficiency(pr)
+    shape_d, shape_s = shapes
+    theory, achieved = occupancy(shape_s, ks.warp_ns)
+    theory_d, _ = occupancy(shape_d)
+    log(card, f"{tag} counts: kernel {k_tot['nodes']} node visits, {k_tot['boxes']} box "
+              f"tests, {k_tot['leaves']} leaf visits, {k_tot['tris']} slot tests; plain walk "
+              f"{stats.get('nodes', 0)}, {stats.get('boxes', 0)}, {stats.get('leaves', 0)}, "
+              f"{stats.get('tris', 0)}; per-ray counts equal {counts_equal}; SIMD efficiency of "
+              f"the launch order {eff:.4f} (plain walk's {eff_p:.4f}), longest {longest} steps "
+              f"(plain {longest_p}); {shape_d['registers']} registers, occupancy theoretical "
+              f"{theory_d:.3f} (counting instance {theory:.3f}), achieved "
+              f"{'not measured' if achieved is None else f'{achieved:.3f}'} (counting instance)")
+    return dict(bound_ms=b_ms, bound_by=by, bound_ms_plain_counts=b_plain,
+                bound_counts="kernel" if fewer is k_tot else "plain walk",
+                nodes=stats.get("nodes", 0), boxes=stats.get("boxes", 0),
+                leaves=stats.get("leaves", 0), tris=stats.get("tris", 0), kernel_counts=k_tot,
+                counts_equal=counts_equal, simd_efficiency=eff, longest_steps=longest,
+                occupancy=theory_d, achieved_occupancy=achieved,
+                registers=shape_d["registers"])
+
+
+def bound_note(row) -> str:
+    """The bound of a compared call as compare_call prints it."""
+    fewer = row["kernel_counts"] if row["bound_counts"] == "kernel" else row
+    return (f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; the {row['bound_counts']}'s "
+            f"{fewer['boxes']} box tests, {fewer['tris']} slot tests; by the plain walk's "
+            f"counts {row['bound_ms_plain_counts']:.4f} ms)")
+
+
 def compare_call(card, label, kind, ps, o, d, tl, reps=10) -> dict:
     """K1 (kind "closest") or K2 ("occluded") against its plain version on
     one call's inputs: K2's flags identical, K1 under its nearest-first
     gate; the counting instance gives the same result as the default one,
     and its per-ray counts stand beside the plain walk's (both kernels take
     children nearest first, the plain walk in the TPU's order, so the
-    counts differ). Kernel time by CUDA events
-    over `reps` launches, plain time of the compared call, the bound from
-    the call's bytes (rays in and out, the scene arrays once) and the box
-    and slot tests of whichever walk made fewer operations (and, as
-    bound_ms_plain_counts, of the plain walk alone), the SIMD efficiency of
-    the launch order and the occupancy. Returns the call's row."""
+    counts differ; walk_counts). Kernel time by CUDA events over `reps`
+    launches, plain time of the compared call, the bound from the call's
+    bytes (rays in and out, the scene arrays once) and the box and slot
+    tests of whichever walk made fewer operations. Returns the call's
+    row."""
     from rfw_tpu_torch.ops import traverse as tr
 
     n = o.shape[0]
@@ -378,37 +430,13 @@ def compare_call(card, label, kind, ps, o, d, tl, reps=10) -> dict:
         err = check_occluded(card, tag, got, ref)
         got_s, ks = fn(ps, o, d, tl, stats=True)
         same = torch.equal(got_s, got)
-    pr = stats["per_ray"]
-    counts_equal = all(torch.equal(a, b) for a, b in zip(ks[:4], pr[:4]))
     assert same, f"{name} ({tag}): the counting instance gives another result"
     ms = cuda_ms(lambda: fn(ps, o, d, tl), reps)
-    k_tot = {k: int(getattr(ks, k).sum()) for k in ("nodes", "boxes", "leaves", "tris")}
-    fewer = min(k_tot, stats, key=flops)
-    b_ms, by = bound(n * (28 + out_b) + scene_b, fewer)
-    b_plain, _ = bound(n * (28 + out_b) + scene_b, stats)
-    eff, longest = simd_efficiency(ks)
-    eff_p, longest_p = simd_efficiency(pr)
-    theory, achieved = occupancy(tr.launch_shape(kind == "occluded", True, n), ks.warp_ns)
-    theory_d, _ = occupancy(tr.launch_shape(kind == "occluded", False, n))
+    shapes = [tr.launch_shape(kind == "occluded", c, n) for c in (False, True)]
+    row = walk_counts(card, f"{name} {label}", ks, stats, n * (28 + out_b) + scene_b, shapes)
     log(card, f"{name} {label}: {n} rays ({live} live), kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({by}; "
-              f"{'the kernel' if fewer is k_tot else 'the plain walk'}'s {fewer.get('boxes', 0)} "
-              f"box tests, {fewer.get('tris', 0)} slot tests; by the plain walk's counts "
-              f"{b_plain:.4f} ms)")
-    log(card, f"{name} {label} counts: kernel {k_tot['nodes']} node visits, {k_tot['boxes']} box "
-              f"tests, {k_tot['leaves']} leaf visits, {k_tot['tris']} slot tests; plain walk "
-              f"{stats.get('nodes', 0)}, {stats.get('boxes', 0)}, {stats.get('leaves', 0)}, "
-              f"{stats.get('tris', 0)}; per-ray counts equal {counts_equal}; SIMD efficiency of "
-              f"the launch order {eff:.4f} (plain walk's {eff_p:.4f}), longest ray {longest} steps "
-              f"(plain {longest_p}); occupancy theoretical {theory_d:.3f} (counting instance "
-              f"{theory:.3f}), achieved "
-              f"{'not measured' if achieved is None else f'{achieved:.3f}'} (counting instance)")
-    return dict(call=label, rays=n, live=live, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=by, bound_ms_plain_counts=b_plain, max_abs_err=err, nodes=stats.get("nodes", 0),
-                boxes=stats.get("boxes", 0), leaves=stats.get("leaves", 0),
-                tris=stats.get("tris", 0), kernel_counts=k_tot, counts_equal=counts_equal,
-                simd_efficiency=eff, longest_steps=longest, occupancy=theory_d,
-                achieved_occupancy=achieved)
+              f"{plain_ms:.2f} ms, {bound_note(row)}")
+    return dict(call=label, rays=n, live=live, ms=ms, plain_ms=plain_ms, max_abs_err=err, **row)
 
 
 @contextmanager
@@ -522,13 +550,17 @@ def packed_items(ps, o, d, tl, K, items_per_ray):
 
 
 def compare_items(card, name, label, dense, any_hit, ps, inst, o, d, tl):
-    """One phase-B kernel against its plain version on packed items (every
-    output bit-identical); kernel time by CUDA events over 10 launches,
-    plain time of the compared call, and the bound from the bytes the
-    kernel touches (a live item reads its instance, o, d and t_limit, 32 B;
-    an empty slot reads its instance, and its t_limit for closest hits;
-    every slot writes 20 B of hit or 1 B of flag), the scene arrays it
-    reads once, and the plain version's test counts."""
+    """One phase-B kernel against its plain version on packed items: K6
+    (dense) and K5 (any hit) identical; K3, which takes children nearest
+    first, under the nearest-first gate over the live slots (empty slots
+    identical). For K3/K5 the counting instance gives the same result, and
+    its per-item counts stand beside the plain walk's (walk_counts). Kernel
+    time by CUDA events over 10 launches, plain time of the compared call,
+    and the bound from the bytes the kernel touches (a live item reads its
+    instance, o, d and t_limit, 32 B; an empty slot reads its instance, and
+    its t_limit for closest hits; every slot writes 20 B of hit or 1 B of
+    flag), the scene arrays it reads once, and the test counts (K3/K5: of
+    whichever walk made fewer operations)."""
     from rfw_tpu_torch.ops import traverse_items as ti
 
     fn, plain = (ti.dense_items, ti.dense_items_plain) if dense else (ti.items, ti.items_plain)
@@ -540,7 +572,8 @@ def compare_items(card, name, label, dense, any_hit, ps, inst, o, d, tl):
     if any_hit:
         err = check_occluded(card, label, got, ref, name=f"{name} kernel vs plain", live=live_k)
     else:
-        err = check_hits(card, label, got, ref, name=f"{name} kernel vs plain", live=live_k)
+        err = check_hits(card, label, got, ref, name=f"{name} kernel vs plain",
+                         exact=True if dense else "nearest", live=live_k)
     ms = cuda_ms(lambda: fn(ps, inst, o, d, tl, any_hit), 10)
     if dense:
         # the treelets of the meshes the items test, the instance rows
@@ -551,40 +584,94 @@ def compare_items(card, name, label, dense, any_hit, ps, inst, o, d, tl):
         scene_b = nbytes(ps.nodes, ps.tris, ps.insts, ps.roots)
     out_b = 1 if any_hit else 20
     item_b = live * (32 + out_b) + (n - live) * ((4 if any_hit else 8) + out_b)
-    b_ms, by = bound(item_b + scene_b, stats)
-    log(card, f"{name} {label}: {n} item slots ({live} items), kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({by}; {item_b} B of items, {scene_b} B "
-              f"of scene, {stats.get('boxes', 0)} box tests, {stats.get('tris', 0)} slot tests)")
-    return dict(call=label, items=live, slots=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=by, max_abs_err=err)
+    head = (f"{name} {label}: {n} item slots ({live} items), kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms")
+    if dense:
+        b_ms, by = bound(item_b + scene_b, stats)
+        log(card, f"{head}, bound {b_ms:.4f} ms ({by}; {item_b} B of items, {scene_b} B of "
+                  f"scene, {stats.get('tris', 0)} slot tests)")
+        return dict(call=label, items=live, slots=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=by, max_abs_err=err)
+    got_s, ks = fn(ps, inst, o, d, tl, any_hit, stats=True)
+    same = torch.equal(got_s, got) if any_hit else all(
+        torch.equal(a, b) for a, b in zip(got_s, got))
+    assert same, f"{name} ({label}): the counting instance gives another result"
+    assert not any(bool(getattr(ks, k)[~live_k].any()) for k in ("nodes", "boxes", "leaves",
+                                                                 "tris")), \
+        f"{name} ({label}): an empty slot counts a visit"
+    shapes = [ti.launch_shape(any_hit, c, n) for c in (False, True)]
+    row = walk_counts(card, f"{name} {label}", ks, stats, item_b + scene_b, shapes)
+    log(card, f"{head}, {bound_note(row)}; {item_b} B of items, {scene_b} B of scene")
+    return dict(call=label, items=live, slots=n, ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                **row)
+
+
+def ids_by_t(e):
+    """Per ray, (t_entry, inst) with the ids ascending inside each run of
+    equal t (the runs themselves stay in t order)."""
+    by_id = torch.sort(e.inst, dim=1, stable=True)
+    by_t = torch.sort(e.t_entry.gather(1, by_id.indices), dim=1, stable=True)
+    return by_t.values, by_id.values.gather(1, by_t.indices)
+
+
+def check_entries(card, label, got, ref, K) -> float:
+    """Hold K4's nearest-first walk against the plain walk in the TPU's
+    order: t_entry bit-identical, the finite masks equal and ids -1 exactly
+    where t is +inf; per ray and per distinct t the same multiset of
+    instance ids, except at a full list's K-th kept t, where another of
+    several equal-t entries may be kept: those rays are counted and the
+    first printed. Returns the largest |t| difference."""
+    fin = torch.isfinite(ref.t_entry)
+    same_t = torch.equal(bits(got.t_entry), bits(ref.t_entry))
+    masks = torch.equal(torch.isfinite(got.t_entry), fin) and torch.equal(got.inst >= 0, fin)
+    t, gi = ids_by_t(got)
+    _, ri = ids_by_t(ref)
+    kth = ref.t_entry[:, K - 1:K]
+    at_kth = (t == kth) & torch.isfinite(kth)
+    differ = gi != ri
+    bad = int((differ & ~at_kth).sum())
+    swapped = (differ & at_kth).any(dim=1)
+    both_fin = fin & torch.isfinite(got.t_entry)
+    err = (got.t_entry - ref.t_entry).abs()[both_fin]
+    err = err.max().item() if err.numel() else 0.0
+    identical = torch.equal(got.t_entry, ref.t_entry) and torch.equal(got.inst, ref.inst)
+    log(card, f"K4 tlas_entries kernel vs plain, {label}: {got.inst.shape[0]} rays, K={K}, "
+              f"entries {int(fin.sum())}, t_entry bit-identical {same_t}, finite masks equal "
+              f"{masks}, ids differ off the K-th kept t {bad}, rays whose K-th kept t keeps "
+              f"another of its equal-t entries {int(swapped.sum())}, identical {identical}")
+    for r in swapped.nonzero().squeeze(1)[:5].tolist():
+        log(card, f"  ray {r}: K-th kept t {kth[r, 0].item():.9g}; kernel ids "
+                  f"{got.inst[r].tolist()}, plain ids {ref.inst[r].tolist()}")
+    assert same_t and masks, f"K4 ({label}): t_entry not bit-identical"
+    assert bad == 0, f"K4 ({label}): {bad} ids differ off the K-th kept t"
+    return err
 
 
 def compare_entries(card, label, ps, o, d, tl, K):
-    """K4 against its plain version on captured rays (t and ids
-    bit-identical)."""
+    """K4 against its plain version on captured rays (check_entries); the
+    counting instance gives the same result, and its per-ray counts stand
+    beside the plain walk's (walk_counts). Kernel time by CUDA events over
+    10 launches, plain time of the compared call, and the bound from the
+    rays' bytes (28 B in, 8K out), the TLAS rows once and the box tests of
+    whichever walk made fewer."""
     from rfw_tpu_torch.ops import traverse_entries as te
 
     stats = {}
     ref, plain_ms = timed(lambda: te.tlas_entries_plain(ps, o, d, tl, K, stats=stats))
     got = te.tlas_entries(ps, o, d, tl, K)
-    fin = torch.isfinite(ref.t_entry)
-    same_t = torch.equal(torch.isfinite(got.t_entry), fin)
-    err = (got.t_entry - ref.t_entry).abs()[fin & torch.isfinite(got.t_entry)]
-    err = err.max().item() if err.numel() else 0.0
-    id_agree = (got.inst == ref.inst)[fin].float().mean().item() if fin.any() else 1.0
-    identical = torch.equal(got.t_entry, ref.t_entry) and torch.equal(got.inst, ref.inst)
-    log(card, f"K4 tlas_entries kernel vs plain, {label}: {o.shape[0]} rays, K={K}, entries "
-              f"{int(fin.sum())}, finite masks equal {same_t}, max t abs err {err:.3e}, "
-              f"id agreement over the entries {id_agree:.6f}, identical {identical}")
-    assert identical, f"K4 ({label}): entries not bit-identical"
+    err = check_entries(card, label, got, ref, K)
+    got_s, ks = te.tlas_entries(ps, o, d, tl, K, stats=True)
+    assert all(torch.equal(a, b) for a, b in zip(got_s, got)), \
+        f"K4 ({label}): the counting instance gives another result"
     ms = cuda_ms(lambda: te.tlas_entries(ps, o, d, tl, K), 10)
     n = o.shape[0]
+    live = int((tl > 0).sum())
     tlas_b = (ps.nodes.shape[0] - ps.tlas_root) * ps.nodes.shape[1] * 4
-    b_ms, by = bound(n * (28 + 8 * K) + tlas_b, stats)
-    log(card, f"K4 {label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
-              f"({by}; {stats.get('boxes', 0)} box tests)")
-    return dict(call=label, rays=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                max_abs_err=err)
+    shapes = [te.launch_shape(K, c, n) for c in (False, True)]
+    row = walk_counts(card, f"K4 {label}", ks, stats, n * (28 + 8 * K) + tlas_b, shapes)
+    log(card, f"K4 {label}: {n} rays ({live} live), kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, {bound_note(row)}")
+    return dict(call=label, rays=n, live=live, ms=ms, plain_ms=plain_ms, max_abs_err=err, **row)
 
 
 def twophase_stages(card, label, ps, o, d, tl, cfg):
@@ -918,7 +1005,8 @@ def phase8(card, dev, base):
         assert kinds == ["closest", "occluded"], f"two-phase calls seen: {kinds}"
         (_, _, o, d, tl), (_, _, so, sd, stl) = calls
         fb = compare_fallback(card, "heavy", ps, o, d, tl, so, sd, stl, cfg)
-        k4 = compare_entries(card, "heavy bounce rays", ps, o, d, tl, cfg.tp_K)
+        k4 = [compare_entries(card, "heavy bounce rays", ps, o, d, tl, cfg.tp_K),
+              compare_entries(card, "heavy bounce shadow rays", ps, so, sd, stl, cfg.tp_K)]
         rows = dict(K3=[], K5=[], K6=[])
         for label, (ro, rd, rtl), any_hit in (("bounce closest", (o, d, tl), False),
                                               ("bounce shadow", (so, sd, stl), True)):
@@ -951,7 +1039,7 @@ def phase8(card, dev, base):
     for k in ("closest", "occluded", "entries", "items_closest", "items_occluded",
               "dense_closest", "dense_occluded"):
         assert launches[k] > 0, f"the phase-8 path never launched {k}"
-    return dict(K4=[k4], launches=launches, fallback=fb, **rows)
+    return dict(K4=k4, launches=launches, fallback=fb, **rows)
 
 
 def run_tool(card, main, argv):
@@ -1149,21 +1237,29 @@ def main() -> int:
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(card, f"ptxas {b.name}: " + line.strip())
-    for any_hit, stats in ((False, False), (True, False), (False, True), (True, True)):
-        s = tr.launch_shape(any_hit, stats, W * H)
-        theory, _ = occupancy(s)
-        log(card, f"{'K2' if any_hit else 'K1'}{' counting instance' if stats else ''}: "
-                  f"{s['registers']} registers, {s['local_bytes']} B local, "
-                  f"{s['shared_bytes']} B shared per block of {s['block']}, {s['blocks_per_sm']} "
-                  f"blocks per SM on {s['sms']} SMs -> theoretical occupancy {theory:.3f}; "
-                  f"{s['grid']} blocks launched for {W * H} rays")
+    from rfw_tpu_torch.ops import traverse_entries as te
+    from rfw_tpu_torch.ops import traverse_items as ti
+    from rfw_tpu_torch.render.wavefront import RenderConfig
+
+    tp_k = RenderConfig().tp_K
+    for stats in (False, True):
+        for name, query in (("K1", lambda c: tr.launch_shape(False, c, W * H)),
+                            ("K2", lambda c: tr.launch_shape(True, c, W * H)),
+                            ("K3", lambda c: ti.launch_shape(False, c, W * H)),
+                            ("K5", lambda c: ti.launch_shape(True, c, W * H)),
+                            (f"K4 (K={tp_k})", lambda c: te.launch_shape(tp_k, c, W * H))):
+            s = query(stats)
+            theory, _ = occupancy(s)
+            log(card, f"{name}{' counting instance' if stats else ''}: "
+                      f"{s['registers']} registers, {s['local_bytes']} B local, "
+                      f"{s['shared_bytes']} B shared per block of {s['block']}, "
+                      f"{s['blocks_per_sm']} blocks per SM on {s['sms']} SMs -> theoretical "
+                      f"occupancy {theory:.3f}; {s['grid']} blocks launched for {W * H} rays")
 
     # ---- 2. scene
     from rfw_tpu_torch.convert import from_numpy_scene
     from rfw_tpu_torch.render.film import add_sample, new_film, tonemap
-    from rfw_tpu_torch.render.wavefront import (
-        RenderConfig, mat_feature_mask, render_sample, tex_kinds_mask,
-    )
+    from rfw_tpu_torch.render.wavefront import mat_feature_mask, render_sample, tex_kinds_mask
     from rfw_tpu_torch.scenes import build_scene
 
     t0 = time.perf_counter()
@@ -1256,6 +1352,8 @@ def main() -> int:
 
     def row(name, source, replaces, launches, rows, extra_err=(), **extra):
         b = max(rows, key=lambda r: r["bound_ms"]) if rows else None
+        if rows and all("bound_ms_plain_counts" in r for r in rows):  # the walks K1-K5
+            extra["bound_ms_plain_counts"] = sum(r["bound_ms_plain_counts"] for r in rows)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches,
                     max_abs_err=max([*extra_err, *(r["max_abs_err"] for r in rows)]),
@@ -1272,7 +1370,6 @@ def main() -> int:
         return row(name, "rfw_tpu_torch/csrc/traverse.cu", "rfw_tpu/ops/traverse.py:335",
                    launches[kind], rows,
                    [cmp_err, *(r["max_abs_err"] for r in fallback(kind))],
-                   bound_ms_plain_counts=sum(r["bound_ms_plain_counts"] for r in rows),
                    fallback_calls=fallback(kind))
 
     items_src = "rfw_tpu_torch/csrc/traverse_items.cu"

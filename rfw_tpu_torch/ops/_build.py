@@ -59,8 +59,10 @@ SIGNATURES = {
             _p, _p, _p, _i,  # ray_o, ray_d, t_limit, n_items
             _p, _p, _p, _p, _p,  # out_t, out_prim, out_inst, out_u, out_v
             _p,  # out_occluded
+            _p, _p, _p,  # next_item, out_stats, warp_ns
             _p,  # stream
         ],
+        "rfw_items_info": [_i, _i, _i, _p],  # any_hit, stats, n_items, out[8]
         "rfw_dense_items": [
             _i,  # any_hit
             _p, _i,  # tris, n_tri_rows
@@ -80,8 +82,10 @@ SIGNATURES = {
             _i,  # tlas_root
             _p, _p, _p, _i,  # ray_o, ray_d, t_limit, n_rays
             _p, _p,  # out_t (R,K), out_inst (R,K)
+            _p, _p, _p,  # next_ray, out_stats, warp_ns
             _p,  # stream
         ],
+        "rfw_tlas_entries_info": [_i, _i, _i, _p],  # K, stats, n_rays, out[8]
     },
     "ubench_leaf": {
         "rfw_ubench_leaf": [

@@ -11,7 +11,9 @@ CUDA kernel in `rfw_tpu_torch/csrc/traverse.cu`, built at first use by
     `pallas_occluded`. For tensors on the card they launch the kernel (or
     raise); for tensors on the CPU they run the plain version. With
     `stats=True` they also return the walk's per-ray counts (`WalkStats`);
-  * `launch_shape` — the kernel's block, residency, registers and grid;
+  * `launch_shape` — the kernel's block, residency, registers and grid
+    (`query_shape`, which the two-phase kernels' wrappers share with
+    `stats_buffers` and `plain_stats`);
   * `closest_hit_plain` / `occluded_plain` — a vectorised torch lockstep
     walk over the same prepared arrays, one lane per ray, in the TPU
     kernels' visit order with their leaf test and tie rules. The kernels
@@ -48,9 +50,10 @@ class WalkStats(NamedTuple):
     """Per-ray counts of one traversal call, each (R,) int32: internal-node
     visits, child box tests (the non-empty child slots of the visited
     nodes), treelet leaf visits and triangle slot tests (a visited leaf's
-    `count`, also where an any-hit walk stops inside it). `warp_ns` is the
-    kernel's (warps, 2) int64 first and last %globaltimer of each launched
-    warp, None for the plain walk.
+    `count`, also where an any-hit walk stops inside it; zero for the TLAS
+    entries walk, which visits no treelet). `warp_ns` is the kernel's
+    (warps, 2) int64 first and last %globaltimer of each launched warp, None
+    for the plain walk.
 
     rfw_tpu's `stats=True` (`pallas_closest_hit`) stamps one while-iteration
     count per Pallas program, whose walk also visits the empty TLAS slots
@@ -460,22 +463,39 @@ def stream_of(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def launch_shape(any_hit: bool, stats: bool = False, n_rays: int = 0, device=None) -> dict:
-    """The launch shape of one instance of the kernel on `device` (default:
-    the current CUDA device): block threads, resident blocks per SM, SMs,
-    registers per thread, local bytes per thread, static shared bytes per
-    block, threads per SM, and the blocks launched for `n_rays`."""
+def query_shape(library: str, fn: str, variant: int, stats: bool, n: int,
+                device=None) -> dict:
+    """The launch shape of one instance of a persistent walk kernel
+    (`csrc/bvh_common.cuh::info`), through `fn(variant, stats, n, out)` of
+    the kernel library `library`, on `device` (default: the current CUDA
+    device): block threads, resident blocks per SM, SMs, registers per
+    thread, local bytes per thread, static shared bytes per block, threads
+    per SM, and the blocks launched for `n` rays."""
     from rfw_tpu_torch.ops._build import load_library
 
-    lib = load_library("traverse")
+    lib = load_library(library)
     out = (ctypes.c_int * 8)()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        rc = lib.rfw_traverse_info(int(any_hit), int(stats), int(n_rays), out)
+        rc = getattr(lib, fn)(int(variant), int(stats), int(n), out)
     if rc != 0:
-        raise RuntimeError(f"traverse kernel query failed: cudaError {rc}")
+        raise RuntimeError(f"{library} kernel query failed: cudaError {rc}")
     keys = ("block", "blocks_per_sm", "sms", "registers", "local_bytes", "shared_bytes",
             "threads_per_sm", "grid")
     return dict(zip(keys, out))
+
+
+def launch_shape(any_hit: bool, stats: bool = False, n_rays: int = 0, device=None) -> dict:
+    """The launch shape of one instance of the K1/K2 kernel (`query_shape`)."""
+    return query_shape("traverse", "rfw_traverse_info", any_hit, stats, n_rays, device)
+
+
+def stats_buffers(shape: dict, n: int, dev):
+    """Zeroed outputs of a counting launch of `shape` over n rays: the
+    per-ray counts (n, 4) int32 and the per-warp spans (warps, 2) int64."""
+    counts = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+    warp_ns = torch.zeros((shape["grid"] * shape["block"] // 32, 2), dtype=torch.int64,
+                          device=dev)
+    return counts, warp_ns
 
 
 def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool, stats: bool):
@@ -499,10 +519,7 @@ def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool, stats: bool
         occ = None
     counts = warp_ns = None
     if stats:
-        counts = torch.zeros((R, 4), dtype=i32, device=dev)
-        grid = launch_shape(any_hit, True, R, dev)
-        warp_ns = torch.zeros((grid["grid"] * grid["block"] // 32, 2), dtype=torch.int64,
-                              device=dev)
+        counts, warp_ns = stats_buffers(launch_shape(any_hit, True, R, dev), R, dev)
     out = occ if any_hit else Hit(t, prim, inst, u, v)
     if R > 0:
         next_ray = torch.zeros(1, dtype=i32, device=dev)
@@ -526,9 +543,10 @@ def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool, stats: bool
     return out, WalkStats(*counts.unbind(1), warp_ns=warp_ns)
 
 
-def _plain_stats(plain, ps, ray_o, ray_d, t_limit):
+def plain_stats(plain, *args):
+    """plain(*args, stats=...)'s result and its per-ray counts (WalkStats)."""
     counts = {}
-    out = plain(ps, ray_o, ray_d, t_limit, stats=counts)
+    out = plain(*args, stats=counts)
     return out, counts["per_ray"]
 
 
@@ -537,7 +555,7 @@ def closest_hit(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX, stats: bool = Fa
     the plain version for tensors on the CPU. With `stats`, (Hit, WalkStats)."""
     if ray_o.device.type == "cpu":
         if stats:
-            return _plain_stats(closest_hit_plain, ps, ray_o, ray_d, t_limit)
+            return plain_stats(closest_hit_plain, ps, ray_o, ray_d, t_limit)
         return closest_hit_plain(ps, ray_o, ray_d, t_limit)
     return _launch(ps, ray_o, ray_d, t_limit, any_hit=False, stats=stats)
 
@@ -548,6 +566,6 @@ def occluded(ps: PreparedScene, ray_o, ray_d, t_limit, stats: bool = False):
     `stats`, (flags, WalkStats)."""
     if ray_o.device.type == "cpu":
         if stats:
-            return _plain_stats(occluded_plain, ps, ray_o, ray_d, t_limit)
+            return plain_stats(occluded_plain, ps, ray_o, ray_d, t_limit)
         return occluded_plain(ps, ray_o, ray_d, t_limit)
     return _launch(ps, ray_o, ray_d, t_limit, any_hit=True, stats=stats)

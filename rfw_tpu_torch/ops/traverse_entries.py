@@ -7,10 +7,15 @@ Counterpart of `rfw_tpu/ops/traverse_entries.py`. The TPU kernel
 
   * `tlas_entries` — counterpart of `pallas_tlas_entries`: for tensors on
     the card it launches the kernel (or raises); for tensors on the CPU it
-    runs the plain version;
+    runs the plain version. With `stats=True` it also returns the walk's
+    per-ray node visits and box tests (`WalkStats`);
+  * `launch_shape` — the kernel's block, residency, registers and grid;
   * `tlas_entries_plain` — a vectorised torch lockstep walk of the TLAS
-    supernodes with the kernel's per-ray semantics (visit order, culling
-    against the K-th best, sorted insert);
+    supernodes in the TPU kernel's visit order, with its culling against
+    the K-th best and its sorted insert. The kernel takes children nearest
+    first, so it visits fewer nodes; its t_entry is bit-identical to this
+    walk's, and its instance ids are the same up to entries of equal t
+    (their order, and which of them is kept at the K-th slot);
   * `LAUNCHES` — how many times the kernel was launched.
 """
 
@@ -19,8 +24,9 @@ from __future__ import annotations
 import torch
 
 from rfw_tpu_torch.ops.traverse import (
-    ARITY, MAX_ITERS, STACK_DEPTH, PreparedScene, _child_slab, _safe_inv,
-    _t_limit, check_rays, node_arrays, ptr, stream_of,
+    ARITY, MAX_ITERS, STACK_DEPTH, PreparedScene, WalkStats, _child_slab, _safe_inv,
+    _t_limit, check_rays, node_arrays, plain_stats, ptr, query_shape, stats_buffers,
+    stream_of,
 )
 from rfw_tpu_torch.render.intersect import T_MAX, T_MIN
 from rfw_tpu_torch.render.twophase import TlasEntries
@@ -35,8 +41,10 @@ LAUNCHES = {"entries": 0}
 def tlas_entries_plain(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
                        K: int = 8, stats=None) -> TlasEntries:
     """Per ray, the K nearest TLAS instance entries (plain torch, any
-    device). stats: a dict whose "boxes" entry gains the child box tests
-    the walk made."""
+    device). stats: a dict whose "nodes" and "boxes" entries gain the
+    internal-node visits and child box tests the walk made, and whose
+    "per_ray" entry becomes the same counts per ray (`WalkStats`, no leaves
+    or slot tests)."""
     dev = ray_o.device
     R = ray_o.shape[0]
     i32 = torch.int32
@@ -52,6 +60,8 @@ def tlas_entries_plain(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
     sp = torch.zeros(R, dtype=torch.int64, device=dev)
     stack = torch.zeros((R, STACK_DEPTH), dtype=i32, device=dev)
     act = torch.arange(R, device=dev)
+    if stats is not None:
+        per_ray = WalkStats(*(torch.zeros(R, dtype=i32, device=dev) for _ in range(4)))
 
     for _ in range(MAX_ITERS):
         if act.numel() == 0:
@@ -81,8 +91,11 @@ def tlas_entries_plain(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
             next_code = torch.full_like(nidx, -1, dtype=i32)
             spi = s[inner]
             if stats is not None:
-                stats["boxes"] = stats.get("boxes", 0) + int(
-                    (~((cd < 0) & (cn == 0))).sum())
+                boxes_r = (~((cd < 0) & (cn == 0))).sum(dim=1).to(i32)
+                per_ray.nodes.index_add_(0, rays, torch.ones_like(boxes_r))
+                per_ray.boxes.index_add_(0, rays, boxes_r)
+                stats["nodes"] = stats.get("nodes", 0) + int(inner.numel())
+                stats["boxes"] = stats.get("boxes", 0) + int(boxes_r.sum())
             for c in range(ARITY):
                 code, cnt = cd[:, c], cn[:, c]
                 tn, tf = _child_slab(bx, c, obj_o, inv)
@@ -117,10 +130,17 @@ def tlas_entries_plain(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
             s[inner] = spi
         node[act] = new_node
         sp[act] = s
+    if stats is not None:
+        stats["per_ray"] = per_ray
     return TlasEntries(ts, ins)
 
 
-def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, K: int) -> TlasEntries:
+def launch_shape(K: int, stats: bool = False, n_rays: int = 0, device=None) -> dict:
+    """The launch shape of the K4 kernel instance for K (`query_shape`)."""
+    return query_shape("traverse_entries", "rfw_tlas_entries_info", K, stats, n_rays, device)
+
+
+def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, K: int, stats: bool):
     from rfw_tpu_torch.ops._build import load_library
 
     if not 1 <= K <= MAX_K:
@@ -131,25 +151,35 @@ def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, K: int) -> TlasEntries:
     tl = _t_limit(t_limit, R, dev)
     ts = torch.empty((R, K), dtype=torch.float32, device=dev)
     ins = torch.empty((R, K), dtype=torch.int32, device=dev)
-    if R == 0:
+    counts = warp_ns = None
+    if stats:
+        counts, warp_ns = stats_buffers(launch_shape(K, True, R, dev), R, dev)
+    if R > 0:
+        lib = load_library("traverse_entries")
+        next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.rfw_tlas_entries(
+                K, ptr(ps.nodes), ps.nodes.shape[0], ps.tlas_root,
+                ptr(ray_o), ptr(ray_d), ptr(tl), R, ptr(ts), ptr(ins),
+                ptr(next_ray), ptr(counts), ptr(warp_ns), stream_of(dev))
+        if rc != 0:
+            raise RuntimeError(f"entries kernel launch failed: cudaError {rc}")
+        LAUNCHES["entries"] += 1
+    if not stats:
         return TlasEntries(ts, ins)
-    lib = load_library("traverse_entries")
-    with torch.cuda.device(dev):
-        rc = lib.rfw_tlas_entries(
-            K, ptr(ps.nodes), ps.nodes.shape[0], ps.tlas_root,
-            ptr(ray_o), ptr(ray_d), ptr(tl), R, ptr(ts), ptr(ins), stream_of(dev))
-    if rc != 0:
-        raise RuntimeError(f"entries kernel launch failed: cudaError {rc}")
-    LAUNCHES["entries"] += 1
-    return TlasEntries(ts, ins)
+    return TlasEntries(ts, ins), WalkStats(*counts.unbind(1), warp_ns=warp_ns)
 
 
 def tlas_entries(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
-                 K: int = 8) -> TlasEntries:
+                 K: int = 8, stats: bool = False):
     """Per ray, the K nearest TLAS instance entries (t_entry ascending,
     +inf / -1 for empty slots): the CUDA kernel for tensors on the card,
     the plain version for tensors on the CPU. A full list may have dropped
-    a nearer-hit instance; phase B flags such rays for a retrace."""
+    a nearer-hit instance; phase B flags such rays for a retrace. With
+    `stats`, (TlasEntries, WalkStats): per ray the node visits and box
+    tests, and on the card each launched warp's span."""
     if ray_o.device.type == "cpu":
+        if stats:
+            return plain_stats(tlas_entries_plain, ps, ray_o, ray_d, t_limit, K)
         return tlas_entries_plain(ps, ray_o, ray_d, t_limit, K)
-    return _launch(ps, ray_o, ray_d, t_limit, K)
+    return _launch(ps, ray_o, ray_d, t_limit, K, stats)

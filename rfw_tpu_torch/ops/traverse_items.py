@@ -44,8 +44,9 @@ import torch
 
 from rfw_tpu_torch.accel.bvh_cpu import TREELET
 from rfw_tpu_torch.ops.traverse import (
-    PreparedScene, TSHIFT, _leaf_slots, _plain_walk, _rebase, _t_limit,
-    check_rays, closest_hit, occluded, ptr, stream_of,
+    PreparedScene, TSHIFT, WalkStats, _leaf_slots, _plain_walk, _rebase, _t_limit,
+    check_rays, closest_hit, occluded, plain_stats, ptr, query_shape, stats_buffers,
+    stream_of,
 )
 from rfw_tpu_torch.ops.traverse_entries import tlas_entries
 from rfw_tpu_torch.render.intersect import Hit, T_MAX
@@ -72,9 +73,10 @@ LAUNCHES = {"items_closest": 0, "items_occluded": 0,
 def items_plain(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
                 any_hit: bool, stats=None):
     """Per item, the walk of its instance's BLAS from that BLAS root
-    (plain torch, any device): the classic walk entered below the TLAS.
-    Items with instance -1 are empty. Returns a Hit (closest) or an
-    occluded mask (any hit)."""
+    (plain torch, any device): the classic walk entered below the TLAS, in
+    the TPU kernels' visit order. Items with instance -1 are empty. Returns
+    a Hit (closest) or an occluded mask (any hit); stats as `_plain_walk`'s
+    (an empty item counts zero)."""
     return _plain_walk(ps, ray_o, ray_d, t_limit, any_hit,
                        start_inst=item_inst, stats=stats)
 
@@ -134,8 +136,13 @@ def dense_items_plain(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
 
 
 # ---------------------------------------------------------------- CUDA path
+def launch_shape(any_hit: bool, stats: bool = False, n_items: int = 0, device=None) -> dict:
+    """The launch shape of one instance of the K3/K5 kernel (`query_shape`)."""
+    return query_shape("traverse_items", "rfw_items_info", any_hit, stats, n_items, device)
+
+
 def _launch(dense: bool, ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
-            any_hit: bool):
+            any_hit: bool, stats: bool = False):
     from rfw_tpu_torch.ops._build import load_library
 
     check_rays(ps, ray_o, ray_d)
@@ -156,33 +163,46 @@ def _launch(dense: bool, ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
         u = torch.empty(C, dtype=f32, device=dev)
         v = torch.empty(C, dtype=f32, device=dev)
         occ = None
-    if C == 0:
-        return occ if any_hit else Hit(t, prim, inst, u, v)
-    lib = load_library("traverse_items")
-    outs = (ptr(t), ptr(prim), ptr(inst), ptr(u), ptr(v), ptr(occ), stream_of(dev))
-    rays = (ptr(item_inst), ptr(ray_o), ptr(ray_d), ptr(tl), C)
-    with torch.cuda.device(dev):
-        if dense:
-            rc = lib.rfw_dense_items(
-                int(any_hit), ptr(ps.tris), ps.tris.shape[0], ptr(ps.insts), ps.n_inst,
-                ptr(ps.tlo), ptr(ps.thi), *rays, *outs)
-        else:
-            rc = lib.rfw_items(
-                int(any_hit), ptr(ps.nodes), ps.nodes.shape[0], ptr(ps.tris),
-                ps.tris.shape[0], ptr(ps.insts), ps.n_inst, ptr(ps.roots), *rays, *outs)
-    kind = f"{'dense' if dense else 'items'}_{'occluded' if any_hit else 'closest'}"
-    if rc != 0:
-        raise RuntimeError(f"{kind} kernel launch failed: cudaError {rc}")
-    LAUNCHES[kind] += 1
-    return occ if any_hit else Hit(t, prim, inst, u, v)
+    out = occ if any_hit else Hit(t, prim, inst, u, v)
+    counts = warp_ns = None
+    if stats:
+        counts, warp_ns = stats_buffers(launch_shape(any_hit, True, C, dev), C, dev)
+    if C > 0:
+        lib = load_library("traverse_items")
+        outs = (ptr(t), ptr(prim), ptr(inst), ptr(u), ptr(v), ptr(occ))
+        rays = (ptr(item_inst), ptr(ray_o), ptr(ray_d), ptr(tl), C)
+        with torch.cuda.device(dev):
+            if dense:
+                rc = lib.rfw_dense_items(
+                    int(any_hit), ptr(ps.tris), ps.tris.shape[0], ptr(ps.insts), ps.n_inst,
+                    ptr(ps.tlo), ptr(ps.thi), *rays, *outs, stream_of(dev))
+            else:
+                next_item = torch.zeros(1, dtype=torch.int32, device=dev)
+                rc = lib.rfw_items(
+                    int(any_hit), ptr(ps.nodes), ps.nodes.shape[0], ptr(ps.tris),
+                    ps.tris.shape[0], ptr(ps.insts), ps.n_inst, ptr(ps.roots), *rays, *outs,
+                    ptr(next_item), ptr(counts), ptr(warp_ns), stream_of(dev))
+        kind = f"{'dense' if dense else 'items'}_{'occluded' if any_hit else 'closest'}"
+        if rc != 0:
+            raise RuntimeError(f"{kind} kernel launch failed: cudaError {rc}")
+        LAUNCHES[kind] += 1
+    if not stats:
+        return out
+    return out, WalkStats(*counts.unbind(1), warp_ns=warp_ns)
 
 
-def items(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit, any_hit: bool):
+def items(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit, any_hit: bool,
+          stats: bool = False):
     """Per-item single-BLAS walks (K3 closest, K5 any hit): the CUDA kernel
-    for tensors on the card, the plain version for tensors on the CPU."""
+    for tensors on the card, the plain version for tensors on the CPU. With
+    `stats`, (result, WalkStats): per item the node visits, box tests, leaf
+    visits and slot tests (zero for an empty slot), and on the card each
+    launched warp's span."""
     if ray_o.device.type == "cpu":
+        if stats:
+            return plain_stats(items_plain, ps, item_inst, ray_o, ray_d, t_limit, any_hit)
         return items_plain(ps, item_inst, ray_o, ray_d, t_limit, any_hit)
-    return _launch(False, ps, item_inst, ray_o, ray_d, t_limit, any_hit)
+    return _launch(False, ps, item_inst, ray_o, ray_d, t_limit, any_hit, stats)
 
 
 def dense_items(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,

@@ -18,8 +18,13 @@ Tolerances:
   * prim and inst: equal where t is unique (no other hit within 1e-6
     relative in the oracle); u, v: atol 2e-3 vs the Pallas kernels, 1e-4
     vs the oracle, where t is unique;
-  * the two phase-B tiers against each other and each kernel against its
-    plain version: identical.
+  * the two phase-B tiers against each other: identical; K5 and K6 against
+    their plain versions: identical; K3, which takes children nearest first
+    where the plain walk keeps the TPU's order, against its plain version:
+    hit masks identical, t bit-identical (at most 1 in 10^5 live items may
+    differ, within 1e-5 relative, where a box is dropped at the rounding
+    edge: none at this size), prim/inst/u/v identical but on exact-t ties,
+    empty slots identical in every output.
 """
 
 import jax.numpy as jnp
@@ -222,16 +227,33 @@ def test_dense_tier_matches_walk(setup):
     assert empty.any() and (walk.prim[empty] == -1).all() and (dense.inst[empty] == -1).all()
 
 
+def _assert_nearest_gate(k, p, live):
+    """K3's gate against the plain walk (see the module docstring)."""
+    assert torch.equal(k.prim >= 0, p.prim >= 0)
+    t_diff = (k.t.view(torch.int32) != p.t.view(torch.int32)) & live
+    assert int(t_diff.sum()) <= int(live.sum()) // 100000
+    assert bool(((k.t - p.t).abs() <= 1e-5 * p.t.abs())[t_diff].all())
+    same_t = ~t_diff
+    tie = same_t & ((k.prim != p.prim) | (k.inst != p.inst))
+    for a, b in zip(k, p):
+        assert torch.equal(a[same_t & ~tie], b[same_t & ~tie])
+        assert torch.equal(a[~live], b[~live])
+
+
 def test_items_kernels_match_plain_on_card(setup):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     ps = tr.PreparedScene(*[x.cuda() if isinstance(x, torch.Tensor) else x
                             for x in setup["ps"]])
     inst, o, d, tl = (x.cuda() for x in _items(setup))
+    live = inst >= 0
     before = dict(ti.LAUNCHES)
-    for fn, plain in ((ti.items, ti.items_plain), (ti.dense_items, ti.dense_items_plain)):
-        k, p = fn(ps, inst, o, d, tl, False), plain(ps, inst, o, d, tl, False)
-        for a, b in zip(k, p):
-            assert torch.equal(a, b)
-        assert torch.equal(fn(ps, inst, o, d, tl, True), plain(ps, inst, o, d, tl, True))
+    _assert_nearest_gate(ti.items(ps, inst, o, d, tl, False),
+                         ti.items_plain(ps, inst, o, d, tl, False), live)
+    assert torch.equal(ti.items(ps, inst, o, d, tl, True), ti.items_plain(ps, inst, o, d, tl, True))
+    k, p = ti.dense_items(ps, inst, o, d, tl, False), ti.dense_items_plain(ps, inst, o, d, tl, False)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert torch.equal(ti.dense_items(ps, inst, o, d, tl, True),
+                       ti.dense_items_plain(ps, inst, o, d, tl, True))
     assert all(ti.LAUNCHES[k] == before[k] + 1 for k in ti.LAUNCHES)

@@ -9,7 +9,12 @@ Tolerances:
   * entry sets: per ray the (t, instance) pairs agree; an instance whose t
     equals the K-th kept t may differ, since `torch.topk`, `lax.top_k` and
     the walks' visit orders break equal t differently;
-  * compaction and the instance sort: exact.
+  * compaction and the instance sort: exact;
+  * K4 on a card against its plain version, which keeps the TPU's visit
+    order where the kernel takes children nearest first: t_entry
+    bit-identical; per ray and per distinct t the same instance ids, but at
+    a full list's K-th kept t, where another of several equal-t entries may
+    be kept.
 """
 
 import jax.numpy as jnp
@@ -164,6 +169,14 @@ def test_pack_compact_matches_jax_and_is_stable(setup):
     assert (np.diff(si[valid])[same] > 0).all()
 
 
+def _ids_by_t(e):
+    """Per ray, (t_entry, inst) with the ids ascending inside each run of
+    equal t (the runs themselves stay in t order)."""
+    by_id = torch.sort(e.inst, dim=1, stable=True)
+    by_t = torch.sort(e.t_entry.gather(1, by_id.indices), dim=1, stable=True)
+    return by_t.values, by_id.values.gather(1, by_t.indices)
+
+
 def test_entries_kernel_matches_plain_on_card(setup):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -174,6 +187,11 @@ def test_entries_kernel_matches_plain_on_card(setup):
     for k in (1, 6, 8):
         got = te.tlas_entries(ps, o, d, tl, K=k)
         ref = te.tlas_entries_plain(ps, o, d, tl, K=k)
-        assert torch.equal(got.t_entry, ref.t_entry)
-        assert torch.equal(got.inst, ref.inst)
+        assert torch.equal(got.t_entry.view(torch.int32), ref.t_entry.view(torch.int32))
+        assert torch.equal(got.inst >= 0, torch.isfinite(ref.t_entry))
+        t, gi = _ids_by_t(got)
+        _, ri = _ids_by_t(ref)
+        kth = ref.t_entry[:, k - 1:k]
+        at_kth = (t == kth) & torch.isfinite(kth)
+        assert torch.equal(gi[~at_kth], ri[~at_kth])
     assert te.LAUNCHES["entries"] == before + 3
