@@ -15,16 +15,19 @@ Phases (any failed check raises, so the script exits nonzero):
   1. set-up: needs CUDA; builds the CUDA kernels from rfw_tpu_torch/csrc,
      one nvcc per source, all at once; prints ptxas's registers and spills
      and the launch shape (registers, resident blocks, theoretical
-     occupancy) of each persistent walk kernel, K1/K2, K3/K5 and K4, and
-     of its counting instance;
+     occupancy) of each kernel K1-K6 and of its counting instance;
   2. scene build and upload;
   3. K1/K2 against their plain torch version on 65,536 rays (compare_call:
      K2's flags identical; K1, which takes children nearest first, under
      its gate: hit masks identical, t bit-identical but for at most 1 in
      10^5 rays within 1e-5 relative, prim/inst/u/v bit-identical but for
-     counted exact-t ties), with the counting instance's per-ray counts
-     beside the plain walk's, the SIMD efficiency of the launch order, the
-     longest ray and the achieved occupancy;
+     counted exact-t ties), each wrapper call counting one launch of its
+     kind, the counting instance giving the same result, with its per-ray
+     counts (check_counts: a node visit per ray, at most 8 box tests a
+     visit and 64 slot tests a leaf, a span per launched warp) beside the
+     plain walk's, the SIMD efficiency of the launch order, the longest
+     ray and the achieved occupancy; and K1's tie rule on two coplanar
+     quads in different treelets (tie_between_treelets);
   4. a 256x144 render through the kernels against the same render through
      the plain traversal (traversal="lockstep");
   5. the main path at 1920x1080 with two_phase="off": a warm-up sample
@@ -38,14 +41,17 @@ Phases (any failed check raises, so the script exits nonzero):
      rows take the dense phase-A scan): the bounce rays of one sample
      captured (with RFW_TP_SHADOW=1, so the bounce shadow rays too), K1
      and K2 against their plain versions on the rays the two-phase
-     fallbacks retrace, K3 and K5 against their plain versions on exactly
+     fallbacks retrace, K2 also on the rays that a two-phase any-hit call
+     with a small item buffer leaves undecided (compare_undecided), K3
+     and K5 against their plain versions on exactly
      those items (compare_items: K5's flags identical; K3, nearest first,
      under K1's gate over the live slots; both with the counts, SIMD
      efficiency, occupancy and bound of compare_call), the whole
      two-phase call against the classic kernel, its stages, K4 against its
      plain version on the same rays (compare_entries: t_entry
-     bit-identical, ids up to counted equal-t swaps at the K-th kept t;
-     counts as above) and the stages with phase A by K4
+     bit-identical, ids up to counted equal-t swaps at the K-th kept t,
+     also with lists of 1 and 8 entries; counts as above) and the stages
+     with phase A by K4
      (the dense-scan gate forced to 0), then the A/B in turns (the
      variants in order, then in reverse): classic K1 against the
      two-phase call with either phase A on the captured bounce rays, and
@@ -58,7 +64,11 @@ Phases (any failed check raises, so the script exits nonzero):
      and RFW_TP_SHADOW=1, K1/K2 on the fallbacks' rays, K4 (on the bounce
      rays and on the bounce shadow rays, its two launches a sample), K3,
      K5 and K6 (closest and any hit) against
-     their plain versions on one sample's captured inputs and the stages
+     their plain versions on one sample's captured inputs (K6 bit for bit,
+     with its box and slot tests beside the plain version's, its
+     registers and achieved occupancy, the padding share of the plain
+     version's slot tests, and K3/K5 timed on K6's own items as its
+     yardstick) and the stages
      of the two-phase call; then the A/B in turns: classic K1 against the
      two-phase call with and without K6 on the captured bounce rays, and
      ms per sample of "off", "auto", and "auto" with both switches set,
@@ -72,6 +82,9 @@ Phases (any failed check raises, so the script exits nonzero):
      1080p primaries split by the cost model they give (call shape, leaf
      tests, node visits, remainder), once by the plain walk's counts and
      once by the kernel's own.
+The tests that need a card (tests/test_torch_*.py, `*_on_card`) cannot run
+where the card is (their conftest imports jax); these phases make their
+checks (.claude/skills/verify/SKILL.md maps each test to its phase).
 Every number is printed beside the card's name and power limit. The line
 before the last two is {"kernels": [...]}: per kernel, its launches in its
 path's counted run, its largest disagreement with the plain version, its
@@ -82,8 +95,9 @@ tiles), the least time the card could take for the same work (bytes over
 3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is larger; U1's
 operations over the fp32 peak of the one SM it occupies; K1-K5's
 operations by whichever of the kernel's walk and the plain walk made
-fewer, the plain walk's alone in bound_ms_plain_counts) and which of the
-two bounds it; no single PyTorch call computes a BVH traversal or either
+fewer, the plain walk's alone in bound_ms_plain_counts; K6's by its own
+counts and by the plain version's likewise) and which of the two bounds
+it; no single PyTorch call computes a BVH traversal or either
 microbenchmark, so library_ms is null. The last line is
 {"ok": true, "device": {...}}.
 """
@@ -115,6 +129,9 @@ HEAVY_SPP = 3
 U1_ITERS, U1_REPS = 512, 3  # the reference tool's defaults
 U1_CMP_ITERS = 16
 U2_TILES, U2_REPS = (1, 8, 64, 512), 3
+# item buffer of the forced two-phase any-hit call whose undecided rays K2
+# retraces (phase 7): small enough that rays lose items
+UNDECIDED_ITEMS_PER_RAY = 0.05
 
 # the card's peaks for the bound (NVIDIA H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -326,6 +343,43 @@ def compare_rays(card, ps, view, dev, seed):
     return dict(K1=k1["max_abs_err"], K2=k2["max_abs_err"])
 
 
+def tie_between_treelets(card, dev) -> None:
+    """K1 on two coplanar copies of a quad, each its own mesh and treelet,
+    against one copy alone, for rays from either side: every ray hits, t,
+    u and v bit-identical to the one copy's, prim that copy's triangle in
+    whichever copy won, inst naming that copy."""
+    from rfw_tpu_torch.convert import to_tensor
+    from rfw_tpu_torch.models.primitives import quad3d
+    from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.render.pack import TraceScene, pack_trace_scene
+
+    def quads(n):
+        meshes = [(k, quad3d(normal=(0, 1, 0), position=(0, 0, 0), width=2, height=2), None)
+                  for k in range(n)]
+        scene = pack_trace_scene(meshes, [(k, np.eye(4, dtype=np.float32)[None])
+                                          for k in range(n)])
+        return scene, tr.prepare_scene(TraceScene(*[to_tensor(getattr(scene, f), dev)
+                                                    for f in TraceScene._fields]))
+
+    rng = np.random.default_rng(11)
+    (_, one_ps), (two_scene, two_ps) = quads(1), quads(2)
+    lo1 = int(two_scene.mesh_tri_range[1, 0])
+    for side in (1.0, -1.0):
+        xz = rng.uniform(-0.9, 0.9, (64, 2)).astype(np.float32)
+        o = torch.from_numpy(np.stack([xz[:, 0], np.full(64, side, np.float32), xz[:, 1]], 1))
+        d = torch.from_numpy(np.tile(np.array([[0.0, -side, 0.0]], np.float32), (64, 1)))
+        o, d = o.to(dev), d.to(dev)
+        one, two = tr.closest_hit(one_ps, o, d), tr.closest_hit(two_ps, o, d)
+        copy = (two.prim >= lo1).to(torch.int32)
+        ok = (bool((one.prim >= 0).all())
+              and torch.equal(one.t.view(torch.int32), two.t.view(torch.int32))
+              and torch.equal(one.u, two.u) and torch.equal(one.v, two.v)
+              and torch.equal(two.prim - copy * lo1, one.prim) and torch.equal(two.inst, copy))
+        log(card, f"K1 tie between treelets, rays from side {side:+.0f}: 64 rays, the second "
+                  f"copy won {int(copy.sum())}, tie rule held {ok}")
+        assert ok, f"K1 tie between treelets (side {side}): the tie rule failed"
+
+
 def simd_efficiency(ws) -> tuple:
     """(SIMD efficiency of the launch order, longest ray's steps) from per-
     ray counts: a ray's steps are its node and leaf visits; a warp of 32
@@ -351,6 +405,39 @@ def occupancy(shape: dict, warp_ns=None) -> tuple:
     w = warp_ns[warp_ns[:, 1] > 0].double()
     window = (w[:, 1].max() - w[:, 0].min()).item()
     return theory, (w[:, 1] - w[:, 0]).sum().item() / max(window * shape["sms"] * max_warps, 1.0)
+
+
+def launched_once(counts: dict, kind: str, fn):
+    """fn()'s result, holding that it added one launch to the wrapper's
+    count counts[kind] and none to another kind."""
+    before = dict(counts)
+    out = fn()
+    assert counts == {**before, kind: before[kind] + 1}, \
+        f"one {kind} call counted {counts} after {before}"
+    return out
+
+
+def check_counts(tag, ks, shape, live, kind="walk"):
+    """The counting instance's invariants: one warp_ns row per launched
+    warp (shape: its launch shape), each written, its end at or after its
+    start; rows outside the mask `live` (empty slots, dead lanes) count
+    nothing; no leaf visit tests more than its 64 slots. A walk ("walk",
+    K1-K5) visits a node for every live row and tests at most 8 boxes a
+    visit; K6 ("dense") visits no node and tests a treelet only after its
+    box."""
+    assert ks.warp_ns.shape == (shape["grid"] * shape["block"] // 32, 2), \
+        f"{tag}: warp_ns {tuple(ks.warp_ns.shape)} for the launch {shape}"
+    assert bool((ks.warp_ns[:, 0] > 0).all()) and bool(
+        (ks.warp_ns[:, 1] >= ks.warp_ns[:, 0]).all()), f"{tag}: a warp span is missing"
+    for k in ("nodes", "boxes", "leaves", "tris"):
+        assert not bool(getattr(ks, k)[~live].any()), f"{tag}: an empty row counts {k}"
+    assert bool((ks.tris <= 64 * ks.leaves).all()), f"{tag}: a leaf tests over 64 slots"
+    if kind == "walk":
+        assert bool((ks.nodes[live] >= 1).all()), f"{tag}: a live row visits no node"
+        assert bool((ks.boxes <= 8 * ks.nodes).all()), f"{tag}: over 8 box tests a visit"
+    else:
+        assert not bool(ks.nodes.any()), f"{tag}: K6 visits a node"
+        assert bool((ks.leaves <= ks.boxes).all()), f"{tag}: a leaf test without its box"
 
 
 def walk_counts(card, tag, ks, stats, n_bytes, shapes) -> dict:
@@ -419,20 +506,21 @@ def compare_call(card, label, kind, ps, o, d, tl, reps=10) -> dict:
     if kind == "closest":
         name, fn, out_b = "K1", tr.closest_hit, 20
         ref, plain_ms = timed(lambda: tr.closest_hit_plain(ps, o, d, tl, stats=stats))
-        got = fn(ps, o, d, tl)
+        got = launched_once(tr.LAUNCHES, kind, lambda: fn(ps, o, d, tl))
         err = check_hits(card, tag, got, ref, exact="nearest")
         got_s, ks = fn(ps, o, d, tl, stats=True)
         same = all(torch.equal(a, b) for a, b in zip(got_s, got))
     else:
         name, fn, out_b = "K2", tr.occluded, 1
         ref, plain_ms = timed(lambda: tr.occluded_plain(ps, o, d, tl, stats=stats))
-        got = fn(ps, o, d, tl)
+        got = launched_once(tr.LAUNCHES, kind, lambda: fn(ps, o, d, tl))
         err = check_occluded(card, tag, got, ref)
         got_s, ks = fn(ps, o, d, tl, stats=True)
         same = torch.equal(got_s, got)
     assert same, f"{name} ({tag}): the counting instance gives another result"
     ms = cuda_ms(lambda: fn(ps, o, d, tl), reps)
     shapes = [tr.launch_shape(kind == "occluded", c, n) for c in (False, True)]
+    check_counts(f"{name} ({tag})", ks, shapes[1], torch.ones_like(tl_t, dtype=torch.bool))
     row = walk_counts(card, f"{name} {label}", ks, stats, n * (28 + out_b) + scene_b, shapes)
     log(card, f"{name} {label}: {n} rays ({live} live), kernel {ms:.4f} ms, plain "
               f"{plain_ms:.2f} ms, {bound_note(row)}")
@@ -515,6 +603,35 @@ def compare_fallback(card, scene_label, ps, o, d, tl, so, sd, stl, cfg):
     return rows
 
 
+def compare_undecided(card, scene_label, ps, o, d, tl, K, items_per_ray):
+    """K2 against its plain version on rays that a two-phase any-hit call
+    leaves undecided: with a small item buffer (items_per_ray) rays lose
+    items, and those their kept instances do not occlude are undecided,
+    so the fallback retraces them with K2; their count is printed and must
+    be positive, and K2 is held on exactly the rays the fallback retraces
+    (compare_call). Returns K2's rows."""
+    from rfw_tpu_torch.ops import traverse_items as ti
+
+    _, undecided = ti.twophase_occluded_fused(ps, o, d, tl, K=K, items_per_ray=items_per_ray)
+    n_und = int(undecided.sum())
+    log(card, f"{scene_label} two-phase any-hit call at {items_per_ray} items per ray: "
+              f"{n_und} of {o.shape[0]} rays undecided, the fallback retraces "
+              f"{min(n_und, ti.fallback_capacity(o.shape[0]))}")
+    assert n_und > 0, f"{scene_label}: no undecided ray at {items_per_ray} items per ray"
+    calls = []
+
+    def record(ps_, ro, rd, rtl):
+        calls.append((ro.clone(), rd.clone(), rtl.clone()))
+        return tr_occluded(ps_, ro, rd, rtl)
+
+    tr_occluded = ti.occluded
+    with patched(ti, occluded=record):
+        ti.twophase_occluded_with_fallback(ps, o, d, tl, K=K, items_per_ray=items_per_ray)
+    assert len(calls) == 1, f"{scene_label}: {len(calls)} fallback calls"
+    return [compare_call(card, f"{scene_label} undecided shadow fallback", "occluded", ps,
+                         *calls[0])]
+
+
 def capture_twophase(run):
     """Run `run()` with render_sample's two-phase calls recorded: returns
     [(kind, prepared scene, ray_o, ray_d, t_limit)]; the calls still run."""
@@ -553,20 +670,27 @@ def compare_items(card, name, label, dense, any_hit, ps, inst, o, d, tl):
     """One phase-B kernel against its plain version on packed items: K6
     (dense) and K5 (any hit) identical; K3, which takes children nearest
     first, under the nearest-first gate over the live slots (empty slots
-    identical). For K3/K5 the counting instance gives the same result, and
-    its per-item counts stand beside the plain walk's (walk_counts). Kernel
-    time by CUDA events over 10 launches, plain time of the compared call,
-    and the bound from the bytes the kernel touches (a live item reads its
-    instance, o, d and t_limit, 32 B; an empty slot reads its instance, and
-    its t_limit for closest hits; every slot writes 20 B of hit or 1 B of
-    flag), the scene arrays it reads once, and the test counts (K3/K5: of
-    whichever walk made fewer operations)."""
+    identical). The wrapper counts one launch of its kind; the counting
+    instance gives the same result, and its per-item counts stand beside
+    the plain version's (walk_counts; check_counts). Kernel time by CUDA
+    events over 10 launches, plain time of the compared call, and the
+    bound from the bytes the kernel touches (a live item reads its
+    instance, o, d and t_limit, 32 B; an empty slot reads its instance,
+    and its t_limit for closest hits; every slot writes 20 B of hit or 1 B
+    of flag), the scene arrays it reads once (K6: the real slots and the
+    36 B table row of each treelet of the items' meshes, the instance rows
+    and treelet ranges) and the test counts of whichever made fewer
+    operations. K6 also gets its yardstick: K3 (K5 for any hit) timed on
+    the same items, held against K6's plain version under K3's gate (K5:
+    flags identical); and the share of the plain version's slot tests
+    that are padding, over the items' mesh spans."""
     from rfw_tpu_torch.ops import traverse_items as ti
 
     fn, plain = (ti.dense_items, ti.dense_items_plain) if dense else (ti.items, ti.items_plain)
+    kind = f"{'dense' if dense else 'items'}_{'occluded' if any_hit else 'closest'}"
     stats = {}
     ref, plain_ms = timed(lambda: plain(ps, inst, o, d, tl, any_hit, stats=stats))
-    got = fn(ps, inst, o, d, tl, any_hit)
+    got = launched_once(ti.LAUNCHES, kind, lambda: fn(ps, inst, o, d, tl, any_hit))
     live_k = inst >= 0
     n, live = inst.shape[0], int(live_k.sum())
     if any_hit:
@@ -576,34 +700,68 @@ def compare_items(card, name, label, dense, any_hit, ps, inst, o, d, tl):
                          exact=True if dense else "nearest", live=live_k)
     ms = cuda_ms(lambda: fn(ps, inst, o, d, tl, any_hit), 10)
     if dense:
-        # the treelets of the meshes the items test, the instance rows
-        iid = inst[inst >= 0].long()
+        # the real slots and table rows of the treelets of the items'
+        # meshes, the instance rows and treelet ranges
+        iid = inst[live_k].long()
         spans = torch.unique(torch.stack([ps.tlo[iid], ps.thi[iid]], 1), dim=0)
-        scene_b = int((spans[:, 1] - spans[:, 0]).sum()) * 64 * 64 + nbytes(ps.insts, ps.tlo, ps.thi)
+        csum = torch.cat([ps.tcount.new_zeros(1), torch.cumsum(ps.tcount, 0)]).long()
+        real = int((csum[spans[:, 1].long()] - csum[spans[:, 0].long()]).sum())
+        treelets = int((spans[:, 1] - spans[:, 0]).sum())
+        scene_b = real * 64 + treelets * 36 + nbytes(ps.insts, ps.tlo, ps.thi)
     else:
         scene_b = nbytes(ps.nodes, ps.tris, ps.insts, ps.roots)
     out_b = 1 if any_hit else 20
     item_b = live * (32 + out_b) + (n - live) * ((4 if any_hit else 8) + out_b)
     head = (f"{name} {label}: {n} item slots ({live} items), kernel {ms:.4f} ms, plain "
             f"{plain_ms:.2f} ms")
-    if dense:
-        b_ms, by = bound(item_b + scene_b, stats)
-        log(card, f"{head}, bound {b_ms:.4f} ms ({by}; {item_b} B of items, {scene_b} B of "
-                  f"scene, {stats.get('tris', 0)} slot tests)")
-        return dict(call=label, items=live, slots=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=by, max_abs_err=err)
     got_s, ks = fn(ps, inst, o, d, tl, any_hit, stats=True)
     same = torch.equal(got_s, got) if any_hit else all(
         torch.equal(a, b) for a, b in zip(got_s, got))
     assert same, f"{name} ({label}): the counting instance gives another result"
-    assert not any(bool(getattr(ks, k)[~live_k].any()) for k in ("nodes", "boxes", "leaves",
-                                                                 "tris")), \
-        f"{name} ({label}): an empty slot counts a visit"
-    shapes = [ti.launch_shape(any_hit, c, n) for c in (False, True)]
+    shape_fn = ti.dense_launch_shape if dense else ti.launch_shape
+    shapes = [shape_fn(any_hit, c, n) for c in (False, True)]
+    check_counts(f"{name} ({label})", ks, shapes[1], live_k, "dense" if dense else "walk")
     row = walk_counts(card, f"{name} {label}", ks, stats, item_b + scene_b, shapes)
     log(card, f"{head}, {bound_note(row)}; {item_b} B of items, {scene_b} B of scene")
-    return dict(call=label, items=live, slots=n, ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                **row)
+    out = dict(call=label, items=live, slots=n, ms=ms, plain_ms=plain_ms, max_abs_err=err, **row)
+    if dense:
+        out.update(dense_yardstick(card, name, label, any_hit, ps, inst, o, d, tl, ref, ks))
+    return out
+
+
+def dense_yardstick(card, name, label, any_hit, ps, inst, o, d, tl, ref, ks) -> dict:
+    """K6's yardstick and padding: K3 (K5) on K6's items against K6's plain
+    result `ref` and timed; the padding share of the plain version's slot
+    tests over the items' mesh spans; the SIMD efficiency of K6's slot
+    tests in the launch order (ks: its counts): the slot tests over 32 x
+    each warp's largest."""
+    from rfw_tpu_torch.ops import traverse_items as ti
+
+    live_k = inst >= 0
+    walk_name = "K5" if any_hit else "K3"
+    walk = ti.items(ps, inst, o, d, tl, any_hit)
+    if any_hit:
+        check_occluded(card, label, walk, ref, name=f"{walk_name} on K6's items vs K6's plain",
+                       live=live_k)
+    else:
+        check_hits(card, label, walk, ref, name=f"{walk_name} on K6's items vs K6's plain",
+                   exact="nearest", live=live_k)
+    walk_ms = cuda_ms(lambda: ti.items(ps, inst, o, d, tl, any_hit), 10)
+    iid = inst[live_k].long()
+    csum = torch.cat([ps.tcount.new_zeros(1), torch.cumsum(ps.tcount, 0)]).long()
+    real = int((csum[ps.thi[iid].long()] - csum[ps.tlo[iid].long()]).sum())
+    padded = 64 * int((ps.thi[iid] - ps.tlo[iid]).sum())
+    pad_share = 1.0 - real / max(padded, 1)
+    tris = ks.tris.long()
+    pad = (-tris.numel()) % 32
+    per_warp = torch.cat([tris, tris.new_zeros(pad)]).view(-1, 32).amax(dim=1)
+    slot_eff = tris.sum().item() / max(32 * per_warp.sum().item(), 1)
+    log(card, f"{name} {label}: yardstick {walk_name} on the same items {walk_ms:.4f} ms; "
+              f"padding {100 * pad_share:.1f}% of the plain version's {padded} slot tests over "
+              f"the items' mesh spans ({real} real slots); SIMD efficiency of K6's slot tests "
+              f"in the launch order {slot_eff:.4f}")
+    return dict(yardstick=walk_name, yardstick_ms=walk_ms, padding_share=pad_share,
+                slot_simd_efficiency=slot_eff)
 
 
 def ids_by_t(e):
@@ -647,18 +805,23 @@ def check_entries(card, label, got, ref, K) -> float:
     return err
 
 
-def compare_entries(card, label, ps, o, d, tl, K):
-    """K4 against its plain version on captured rays (check_entries); the
-    counting instance gives the same result, and its per-ray counts stand
-    beside the plain walk's (walk_counts). Kernel time by CUDA events over
-    10 launches, plain time of the compared call, and the bound from the
-    rays' bytes (28 B in, 8K out), the TLAS rows once and the box tests of
-    whichever walk made fewer."""
+def compare_entries(card, label, ps, o, d, tl, K, other_k=()):
+    """K4 against its plain version on captured rays (check_entries), also
+    at each list length of `other_k` (the check alone); each call counts
+    one launch; the counting instance gives the same result, and its
+    per-ray counts stand beside the plain walk's (walk_counts;
+    check_counts). Kernel time by CUDA events over 10 launches, plain time
+    of the compared call, and the bound from the rays' bytes (28 B in, 8K
+    out), the TLAS rows once and the box tests of whichever walk made
+    fewer."""
     from rfw_tpu_torch.ops import traverse_entries as te
 
+    for k in other_k:
+        got = launched_once(te.LAUNCHES, "entries", lambda: te.tlas_entries(ps, o, d, tl, k))
+        check_entries(card, f"{label}, K={k}", got, te.tlas_entries_plain(ps, o, d, tl, k), k)
     stats = {}
     ref, plain_ms = timed(lambda: te.tlas_entries_plain(ps, o, d, tl, K, stats=stats))
-    got = te.tlas_entries(ps, o, d, tl, K)
+    got = launched_once(te.LAUNCHES, "entries", lambda: te.tlas_entries(ps, o, d, tl, K))
     err = check_entries(card, label, got, ref, K)
     got_s, ks = te.tlas_entries(ps, o, d, tl, K, stats=True)
     assert all(torch.equal(a, b) for a, b in zip(got_s, got)), \
@@ -668,6 +831,7 @@ def compare_entries(card, label, ps, o, d, tl, K):
     live = int((tl > 0).sum())
     tlas_b = (ps.nodes.shape[0] - ps.tlas_root) * ps.nodes.shape[1] * 4
     shapes = [te.launch_shape(K, c, n) for c in (False, True)]
+    check_counts(f"K4 ({label})", ks, shapes[1], tl > 0)
     row = walk_counts(card, f"K4 {label}", ks, stats, n * (28 + 8 * K) + tlas_b, shapes)
     log(card, f"K4 {label}: {n} rays ({live} live), kernel {ms:.4f} ms, plain "
               f"{plain_ms:.2f} ms, {bound_note(row)}")
@@ -935,6 +1099,8 @@ def phase7(card, dev, scene, mats, atlas, lights, view, ps, base):
               f"{ps.inst_min.shape[0]} rows -> phase A by "
               f"{'the dense scan' if ps.inst_min.shape[0] <= ti.DENSE_A_MAX_INST else 'K4'}")
     fb = compare_fallback(card, "flagship", ps, o, d, tl, so, sd, stl, cfg)
+    fb["occluded"] += compare_undecided(card, "flagship", ps, so, sd, stl, cfg.tp_K,
+                                        UNDECIDED_ITEMS_PER_RAY)
     _, inst, o_s, d_s, tl_s, _ = packed_items(ps, o, d, tl, cfg.tp_K, cfg.tp_items_per_ray)
     k3 = compare_items(card, "K3", "bounce closest items", False, False, ps, inst, o_s, d_s, tl_s)
     _, inst, o_s, d_s, tl_s, _ = packed_items(ps, so, sd, stl, cfg.tp_K, cfg.tp_items_per_ray)
@@ -942,7 +1108,7 @@ def phase7(card, dev, scene, mats, atlas, lights, view, ps, base):
     twophase_vs_classic(card, "flagship bounce rays", ps, o, d, tl, cfg, (so, sd, stl))
     twophase_stages(card, "flagship bounce rays", ps, o, d, tl, cfg)
     with patched(ti, DENSE_A_MAX_INST=0):
-        k4 = compare_entries(card, "flagship bounce rays", ps, o, d, tl, cfg.tp_K)
+        k4 = compare_entries(card, "flagship bounce rays", ps, o, d, tl, cfg.tp_K, (1, 8))
         twophase_stages(card, "flagship bounce rays, phase A by K4", ps, o, d, tl, cfg)
 
     kw = dict(K=cfg.tp_K, items_per_ray=cfg.tp_items_per_ray)
@@ -1247,7 +1413,9 @@ def main() -> int:
                             ("K2", lambda c: tr.launch_shape(True, c, W * H)),
                             ("K3", lambda c: ti.launch_shape(False, c, W * H)),
                             ("K5", lambda c: ti.launch_shape(True, c, W * H)),
-                            (f"K4 (K={tp_k})", lambda c: te.launch_shape(tp_k, c, W * H))):
+                            (f"K4 (K={tp_k})", lambda c: te.launch_shape(tp_k, c, W * H)),
+                            ("K6 closest", lambda c: ti.dense_launch_shape(False, c, W * H)),
+                            ("K6 any hit", lambda c: ti.dense_launch_shape(True, c, W * H))):
             s = query(stats)
             theory, _ = occupancy(s)
             log(card, f"{name}{' counting instance' if stats else ''}: "
@@ -1277,6 +1445,7 @@ def main() -> int:
     # ---- 3. kernels against their plain versions
     view_full = torch.from_numpy(camera.get_view(W, H).as_array()).to(dev)
     cmp = compare_rays(card, ps, view_full, dev, SEED)
+    tie_between_treelets(card, dev)
 
     # ---- 4. render through the kernels vs through the plain traversal
     base = dict(max_bounces=BOUNCES, clamp=20.0, sky_intensity=0.35, sampler="sobol",

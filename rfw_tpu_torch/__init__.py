@@ -10,11 +10,30 @@ copies here, kept bit-identical to the originals. Module paths mirror
   accel/bvh_cpu.py, render/pack.py,           BVH build and arena packing
   render/lights_pack.py, render/atlas.py        (numpy)
   convert.py                                  packed arenas -> device tensors
+  scenes.py                                   seeded procedural scenes (the
+                                              flagship-scale and the
+                                              instance-heavy one)
   render/{wavefront,disney,sampler,atlas,     the wavefront path tracer (torch)
           intersect,film}.py
-  ops/traverse.py + csrc/traverse.cu          two-level BVH traversal: the
-                                              hand-written CUDA kernel for
-                                              Hopper and its plain torch walk
+  render/twophase.py                          two-phase phase A by a dense
+                                              (R, I) scan of instance boxes
+  ops/traverse.py + csrc/traverse.cu          K1/K2: two-level BVH traversal
+                                              (closest hit, occlusion)
+  ops/traverse_entries.py +                   K4: each ray's K nearest TLAS
+      csrc/traverse_entries.cu                  instance entries (phase A)
+  ops/traverse_items.py +                     phase B and the whole two-phase
+      csrc/traverse_items.cu                    call: K3/K5 per-item BLAS
+                                                walks, K6 dense items
+  csrc/bvh_common.cuh                         the device code they share: the
+                                              scene encoding, re-base, slab
+                                              and leaf tests, the walk
+  tools/ubench_{leaf,grid}.py +               U1/U2: microbenchmarks of the
+      csrc/ubench_{leaf,grid}.cu                leaf test and of K1's call
+                                                shape
+
+Each kernel is hand-written CUDA for Hopper (sm_90a) beside its plain torch
+version; a wrapper launches the kernel for tensors on the card and runs the
+plain version for tensors on the CPU.
 
 Importing builds nothing: the CUDA kernels compile at first use
 (`ops/_build.py`).

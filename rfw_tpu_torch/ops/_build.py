@@ -68,12 +68,15 @@ SIGNATURES = {
             _p, _i,  # tris, n_tri_rows
             _p, _i,  # insts, n_inst
             _p, _p,  # tlo, thi
+            _p, _p,  # tbox, tcount
             _p,  # item_inst
             _p, _p, _p, _i,  # ray_o, ray_d, t_limit, n_items
             _p, _p, _p, _p, _p,  # out_t, out_prim, out_inst, out_u, out_v
             _p,  # out_occluded
+            _p, _p,  # out_stats, warp_ns
             _p,  # stream
         ],
+        "rfw_dense_items_info": [_i, _i, _i, _p],  # any_hit, stats, n_items, out[8]
     },
     "traverse_entries": {
         "rfw_tlas_entries": [

@@ -83,6 +83,12 @@ class PreparedScene(NamedTuple):
     tlo, thi: (max(I,1),) i32 — per instance, the treelet range [tlo, thi)
       of its mesh in the triangle arena (0, 0 where unknown), for the
       dense items tier.
+    tbox: (C, 8) f32 — per treelet, the box of the BLAS leaf that names it
+      as two float4s (min3, 0 | max3, 0), all zero where no leaf names it;
+      the dense items kernel's cull.
+    tcount: (C,) i32 — per treelet, that leaf's slot count (its real
+      triangles; the slots past it are all-zero Woop rows), 0 where no leaf
+      names the treelet.
     """
 
     nodes: torch.Tensor
@@ -95,6 +101,8 @@ class PreparedScene(NamedTuple):
     inst_max: torch.Tensor
     tlo: torch.Tensor
     thi: torch.Tensor
+    tbox: torch.Tensor
+    tcount: torch.Tensor
 
 
 def _woop12(v0, e1, e2):
@@ -165,13 +173,36 @@ def prepare_scene(scene) -> PreparedScene:
         thi = torch.where(present, rng[idx, 1], 0) >> TSHIFT
     else:
         tlo = thi = torch.zeros(1, dtype=torch.int32, device=dev)
+    tbox, tcount = _treelet_tables(box8[:nb8], code8[:nb8], cnt8[:nb8],
+                                   tris.shape[0] // TREELET)
     return PreparedScene(nodes=nodes, tris=tris.contiguous(),
                          insts=insts.contiguous(), roots=roots.contiguous(),
                          tlas_root=nb8, n_inst=n_inst,
                          inst_min=scene.inst_aabb_min.to(torch.float32).contiguous(),
                          inst_max=scene.inst_aabb_max.to(torch.float32).contiguous(),
                          tlo=tlo.to(torch.int32).contiguous(),
-                         thi=thi.to(torch.int32).contiguous())
+                         thi=thi.to(torch.int32).contiguous(), tbox=tbox, tcount=tcount)
+
+
+def _treelet_tables(box, code, cnt, n_treelets: int):
+    """Per treelet, the box and slot count of the BLAS leaf child that names
+    it, from the BLAS supernode rows (box (S,48) f32, code and cnt (S,8)
+    i32): a child with code < 0 and cnt > 0 is a leaf whose payload -code-1
+    is its first triangle row; its treelet and count are decoded as the
+    walk decodes a leaf (csrc/bvh_common.cuh::visit). Returns (tbox
+    (n_treelets, 8) f32, tcount (n_treelets,) i32)."""
+    dev = box.device
+    leaf = (code < 0) & (cnt > 0)
+    last = (-code[leaf] - 1) + torch.clamp(cnt[leaf] - 1, max=TREELET - 1)
+    tid = (last >> TSHIFT).long()
+    ok = tid < n_treelets
+    tid, lbox = tid[ok], box.reshape(-1, ARITY, 6)[leaf][ok]
+    tbox = torch.zeros((n_treelets, 8), dtype=torch.float32, device=dev)
+    tbox[tid, 0:3] = lbox[:, 0:3]
+    tbox[tid, 4:7] = lbox[:, 3:6]
+    tcount = torch.zeros(n_treelets, dtype=torch.int32, device=dev)
+    tcount[tid] = ((last[ok] & (TREELET - 1)) + 1).to(torch.int32)
+    return tbox, tcount
 
 
 def _t_limit(t_limit, n: int, device) -> torch.Tensor:
@@ -447,7 +478,9 @@ def check_rays(ps: PreparedScene, ray_o, ray_d) -> None:
                         ("insts", ps.insts, torch.float32),
                         ("roots", ps.roots, torch.int32),
                         ("tlo", ps.tlo, torch.int32),
-                        ("thi", ps.thi, torch.int32)):
+                        ("thi", ps.thi, torch.int32),
+                        ("tbox", ps.tbox, torch.float32),
+                        ("tcount", ps.tcount, torch.int32)):
         if a.device != dev or a.dtype != dt or not a.is_contiguous():
             raise ValueError(f"prepared scene {name} must be a contiguous "
                              f"{dt} tensor on {dev}")

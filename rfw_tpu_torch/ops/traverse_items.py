@@ -14,7 +14,7 @@ so the two-phase path bins them by the BLAS they are about to walk:
   3. phase B: each item walks its instance's BLAS alone — K3 (closest) or
      K5 (any hit), `items` — or, with RFW_DENSE_ITEMS=1, items whose
      instance mesh spans at most DENSE_MAX_TRIS // TREELET treelets test
-     every treelet of it instead — K6, `dense_items`;
+     the treelets of it instead, with no walk — K6, `dense_items`;
   4. per-ray merge by scatter-min (closest) or scatter-max (any hit);
   5. fallback: rays whose K-list was full with the best hit beyond its
      last entry, or whose items did not fit the buffer, are retraced with
@@ -85,7 +85,10 @@ def dense_items_plain(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
                       any_hit: bool, stats=None):
     """Per item, every treelet of its instance mesh's range [tlo, thi),
     all 64 slots each, in order; a later treelet must be strictly nearer
-    (plain torch, any device). stats: "tris" gains the slot tests."""
+    (plain torch, any device): the TPU kernel's order and work. stats: a
+    dict whose "leaves" and "tris" entries gain the treelets and slots
+    tested, and whose "per_ray" entry becomes the same counts per item
+    (`WalkStats`; no node visits or box tests)."""
     dev = ray_o.device
     C = ray_o.shape[0]
     i32 = torch.int32
@@ -102,6 +105,8 @@ def dense_items_plain(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
     span = torch.where(valid, ps.thi[iid] - lo, 0)
     obj = _rebase(ps, inst, ray_o, ray_d)
     full = torch.full((C,), TREELET, dtype=i32, device=dev)
+    if stats is not None:
+        per_ray = WalkStats(*(torch.zeros(C, dtype=i32, device=dev) for _ in range(4)))
     n_span = int(span.max()) if C else 0
     for j in range(n_span):
         take = j < span
@@ -114,8 +119,9 @@ def dense_items_plain(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
         tcur = t_best[sel]
         ok, t, u, v = _leaf_slots(ps.tris, first, full[sel], tuple(x[sel] for x in obj), tcur)
         if stats is not None:
-            stats["tris"] = stats.get("tris", 0) + TREELET * int(
-                (first + TREELET <= ps.tris.shape[0]).sum())
+            in_arena = (first + TREELET <= ps.tris.shape[0]).to(i32)
+            per_ray.leaves.index_add_(0, sel, in_arena)
+            per_ray.tris.index_add_(0, sel, in_arena * TREELET)
         if any_hit:
             occ[sel[ok.any(dim=1)]] = True
             continue
@@ -130,6 +136,10 @@ def dense_items_plain(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
         hit_inst[hs] = inst[hs]
         hit_u[hs] = u[hit].gather(1, wsel)[:, 0]
         hit_v[hs] = v[hit].gather(1, wsel)[:, 0]
+    if stats is not None:
+        for k in ("leaves", "tris"):
+            stats[k] = stats.get(k, 0) + int(getattr(per_ray, k).sum())
+        stats["per_ray"] = per_ray
     if any_hit:
         return occ
     return Hit(t_best, prim, hit_inst, hit_u, hit_v)
@@ -139,6 +149,14 @@ def dense_items_plain(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
 def launch_shape(any_hit: bool, stats: bool = False, n_items: int = 0, device=None) -> dict:
     """The launch shape of one instance of the K3/K5 kernel (`query_shape`)."""
     return query_shape("traverse_items", "rfw_items_info", any_hit, stats, n_items, device)
+
+
+def dense_launch_shape(any_hit: bool, stats: bool = False, n_items: int = 0,
+                       device=None) -> dict:
+    """The launch shape of one instance of the K6 kernel (`query_shape`;
+    its grid is one thread per item slot)."""
+    return query_shape("traverse_items", "rfw_dense_items_info", any_hit, stats, n_items,
+                       device)
 
 
 def _launch(dense: bool, ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
@@ -166,7 +184,8 @@ def _launch(dense: bool, ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
     out = occ if any_hit else Hit(t, prim, inst, u, v)
     counts = warp_ns = None
     if stats:
-        counts, warp_ns = stats_buffers(launch_shape(any_hit, True, C, dev), C, dev)
+        shape = (dense_launch_shape if dense else launch_shape)(any_hit, True, C, dev)
+        counts, warp_ns = stats_buffers(shape, C, dev)
     if C > 0:
         lib = load_library("traverse_items")
         outs = (ptr(t), ptr(prim), ptr(inst), ptr(u), ptr(v), ptr(occ))
@@ -175,7 +194,8 @@ def _launch(dense: bool, ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
             if dense:
                 rc = lib.rfw_dense_items(
                     int(any_hit), ptr(ps.tris), ps.tris.shape[0], ptr(ps.insts), ps.n_inst,
-                    ptr(ps.tlo), ptr(ps.thi), *rays, *outs, stream_of(dev))
+                    ptr(ps.tlo), ptr(ps.thi), ptr(ps.tbox), ptr(ps.tcount), *rays, *outs,
+                    ptr(counts), ptr(warp_ns), stream_of(dev))
             else:
                 next_item = torch.zeros(1, dtype=torch.int32, device=dev)
                 rc = lib.rfw_items(
@@ -206,13 +226,21 @@ def items(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit, any_hit: bool,
 
 
 def dense_items(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
-                any_hit: bool):
-    """Per-item all-treelet tests of the instance mesh (K6): the CUDA
-    kernel for tensors on the card, the plain version for tensors on the
-    CPU."""
+                any_hit: bool, stats: bool = False):
+    """Per-item treelet tests of the instance mesh (K6): the CUDA kernel
+    for tensors on the card (treelets whose box the ray misses, or enters
+    at or past the best hit, are skipped, and a treelet's real slots
+    alone are tested), the plain version for tensors on the CPU (every
+    slot of every treelet, the same result). With `stats`, (result,
+    WalkStats): per item no node visits, the box tests (the kernel's; none
+    in the plain version), the treelets tested and their slot tests (zero
+    for an empty slot), and on the card each warp's span."""
     if ray_o.device.type == "cpu":
+        if stats:
+            return plain_stats(dense_items_plain, ps, item_inst, ray_o, ray_d, t_limit,
+                               any_hit)
         return dense_items_plain(ps, item_inst, ray_o, ray_d, t_limit, any_hit)
-    return _launch(True, ps, item_inst, ray_o, ray_d, t_limit, any_hit)
+    return _launch(True, ps, item_inst, ray_o, ray_d, t_limit, any_hit, stats)
 
 
 # ---------------------------------------------------------------- glue

@@ -242,7 +242,8 @@ def _assert_nearest_gate(k, p, live):
 
 def test_items_kernels_match_plain_on_card(setup):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode; chip_smoke.py "
+                    "phases 7-8 (compare_items) make this check on the card")
     ps = tr.PreparedScene(*[x.cuda() if isinstance(x, torch.Tensor) else x
                             for x in setup["ps"]])
     inst, o, d, tl = (x.cuda() for x in _items(setup))

@@ -142,7 +142,8 @@ def test_items_counting_instance_on_card(setup):
     launch's result, zero counts for empty slots, and a warp_ns row for
     every launched warp."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode; chip_smoke.py "
+                    "phases 7-8 (compare_items, check_counts) make this check on the card")
     ps = tr.PreparedScene(*[x.cuda() if isinstance(x, torch.Tensor) else x
                             for x in setup["ps"]])
     inst, o, d, tl = (x.cuda() for x in setup["items"])

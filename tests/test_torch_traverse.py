@@ -175,7 +175,8 @@ def test_cuda_wrapper_rejects_other_devices(setup):
 
 def test_kernel_matches_plain_on_card(setup):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode; chip_smoke.py "
+                    "phases 3 and 5 (compare_call) make this check on the card")
     ps = tr.PreparedScene(*[x.cuda() if isinstance(x, torch.Tensor) else x
                             for x in setup["ps"]])
     o, d = setup["o"].cuda(), setup["d"].cuda()

@@ -109,7 +109,8 @@ def test_tie_between_treelets(device, side):
     both at the same t, bit for bit, and either copy may win; t, u and v are
     those of the one copy alone, and inst names the copy that won."""
     if device == "cuda" and not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode; chip_smoke.py "
+                    "phase 3 (tie_between_treelets) makes this check on the card")
     rng = np.random.default_rng(11)
     xz = rng.uniform(-0.9, 0.9, (64, 2)).astype(np.float32)
     o = np.stack([xz[:, 0], np.full(64, side, np.float32), xz[:, 1]], 1)
@@ -132,7 +133,8 @@ def test_counting_instance_on_card(setup):
     and its per-ray counts are those of a walk from the TLAS root (nearest
     first, so not the plain walk's)."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode; chip_smoke.py "
+                    "phases 3 and 5 (compare_call, check_counts) make this check on the card")
     ps = tr.PreparedScene(*[x.cuda() if isinstance(x, torch.Tensor) else x for x in setup[0]])
     o, d, tl = (x.cuda() for x in setup[1:])
     occ, wo = tr.occluded(ps, o, d, tl, stats=True)

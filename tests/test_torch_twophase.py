@@ -179,7 +179,8 @@ def _ids_by_t(e):
 
 def test_entries_kernel_matches_plain_on_card(setup):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode; chip_smoke.py "
+                    "phases 7-8 (compare_entries) make this check on the card")
     ps = tr.PreparedScene(*[x.cuda() if isinstance(x, torch.Tensor) else x
                             for x in setup["ps"]])
     o, d, tl = (x.cuda() for x in _torch_rays(setup))

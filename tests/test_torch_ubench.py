@@ -160,7 +160,8 @@ def test_leaf_copies_on_cpu(leaf_ref):
 @pytest.mark.parametrize("variant", ul.VARIANTS)
 def test_leaf_kernel_matches_plain_on_card(leaf_ref, variant):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+        pytest.skip("needs a CUDA device; chip_smoke.py phase 9 makes this check on the "
+                    "card")
     recs, obj = _inputs(leaf_ref["tri"], leaf_ref["obj"], "cuda")
     ref = ul.leaf_plain(recs, obj, variant, 8)
     got = ul.leaf(recs, obj, variant, 8, copies=4)
@@ -227,7 +228,8 @@ def test_grid_keep_alive_rule(grid_ref, variant):
 @pytest.mark.parametrize("variant", ug.VARIANTS)
 def test_grid_kernel_matches_plain_on_card(grid_ref, variant):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+        pytest.skip("needs a CUDA device; chip_smoke.py phase 9 makes this check on the "
+                    "card")
     ps = prepare_scene(from_numpy_scene(*_torch_scene.build("rfw_tpu_torch", seed=2)[:4],
                                         "cuda")[0])
     o, d = (torch.from_numpy(a).cuda() for a in ug.make_rays(3))
