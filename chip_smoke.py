@@ -9,7 +9,8 @@ flagship scene's scale (4 icosphere meshes of 20,480 triangles, 256
 instances, textured floor, area + spot + sun lights; made from a seed),
 with two_phase="off" (every ray through the classic kernel) and with the
 default two_phase="auto" (bounce rays through the two-phase path), and on
-an instance-heavy scene of 10,000 instances.
+an instance-heavy scene of 10,000 instances; then drives the same scene
+through the backend a user calls, `TorchBackend`.
 
 Phases (any failed check raises, so the script exits nonzero):
   1. set-up: needs CUDA; builds the CUDA kernels from rfw_tpu_torch/csrc,
@@ -81,7 +82,20 @@ Phases (any failed check raises, so the script exits nonzero):
      8, 64 and 512 tiles with K1 on the same rays), and K1's time on the
      1080p primaries split by the cost model they give (call shape, leaf
      tests, node visits, remainder), once by the plain walk's counts and
-     once by the kernel's own.
+     once by the kernel's own; and the SASS of U1 full's per-slot loop
+     (instructions per slot test, by opcode, beside the 44 fp32 operations
+     the bound counts) and the time issuing it takes;
+ 10. the backend on the card: TorchBackend(1920, 1080) on the flagship
+     scene fed through the 14-method contract (Mesh3D.view() meshes,
+     instances, materials, textures, spot, sun and area lights), phase 5's
+     settings with two_phase="auto": its first pack equals build_scene's
+     field for field, its first frame launches K1, K2 and K3 (counters
+     reset just before it, read just after), its first HDR frame equals
+     render_sample at sample 0 on its own tensors, tonemap(fxaa=True) on
+     the card agrees with the CPU on the same accumulator (99.9% of
+     pixels within 1); then 4 progressive frames (ms, Mrays/s), a motion
+     sync of the 256 sphere instances against a full repack (the same
+     arenas either way), a NORMAL frame and a frame with a quad2d overlay.
 The tests that need a card (tests/test_torch_*.py, `*_on_card`) cannot run
 where the card is (their conftest imports jax); these phases make their
 checks (.claude/skills/verify/SKILL.md maps each test to its phase).
@@ -141,6 +155,8 @@ FP32_FLOP_PER_S = 67e12
 # test (6 dot products of 5, 3 adds, 1 div, 2 mul + 2 add, 6 compares)
 FLOP_PER_BOX = 25
 FLOP_PER_TRI = 44
+# warp instructions an H100 SM issues a clock (4 sub-partitions, one each)
+WARP_ISSUE_PER_CLOCK = 4
 
 
 def card_line() -> str:
@@ -1227,16 +1243,17 @@ def sm_clock_mhz() -> str:
 SASS_OPS = ("LDG", "SHFL", "MUFU.RCP", "F2I", "FADD", "FMUL", "FFMA", "BRA")
 
 
-def sass_census(card) -> dict:
+def sass_census(card):
     """Per kernel of the microbenchmarks, the count of each SASS opcode that
     carries the work they time (`cuobjdump -sass` of the built libraries):
     nvcc deletes work whose result is never stored, so this shows that the
     re-base, the leaf loop, the epilogue's division and the fetch chains
-    are still in the code. Returns {kernel symbol: Counter}."""
+    are still in the code. Returns ({kernel symbol: Counter}, {kernel
+    symbol: [(address, opcode, branch target or None)]})."""
     from rfw_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
-    census = {}
+    census, listing, labels = {}, {}, {}
     for b in _build.build(["ubench_leaf", "ubench_grid"]):
         sass = subprocess.run([str(tool), "-sass", str(b.path)], capture_output=True,
                               text=True, check=True, timeout=120).stdout
@@ -1245,17 +1262,60 @@ def sass_census(card) -> dict:
             m = re.match(r"\s*Function : (\S+)", line)
             if m:
                 fn = m.group(1)
-                census[fn] = Counter()
+                census[fn], listing[fn], labels[fn] = Counter(), [], {}
                 continue
-            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if fn and m:  # a label names the next instruction
+                labels[fn][m.group(1)] = len(listing[fn])
+                continue
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*)",
+                          line)
             if fn and m:
-                op = m.group(1)
+                op = m.group(2)
                 census[fn][op.split(".")[0]] += 1
                 if op.startswith("MUFU.RCP"):
                     census[fn]["MUFU.RCP"] += 1
+                target = None
+                if op.split(".")[0] == "BRA":  # an address or a label
+                    t = re.search(r"0x([0-9a-f]+)|\((\.L_x_\d+)\)", m.group(3))
+                    target = t and (int(t.group(1), 16) if t.group(1) else t.group(2))
+                listing[fn].append((int(m.group(1), 16), op, target))
+    for fn, insts in listing.items():  # labels -> the addresses they name
+        at = {name: insts[i][0] for name, i in labels[fn].items() if i < len(insts)}
+        listing[fn] = [(a, op, at.get(t) if isinstance(t, str) else t) for a, op, t in insts]
     for fn, c in sorted(census.items()):
         log(card, f"SASS {fn}: " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
-    return census
+    return census, listing
+
+
+def slot_loop(card, listing) -> dict:
+    """The SASS of U1 `full`'s per-slot loop: the smallest backward branch
+    of `leaf_kernel<0>` whose body holds the slot test's division
+    (MUFU.RCP, one per slot; `leaf_test` unrolls its slot loop by 2), its
+    instructions per slot and their opcodes, beside the fp32 operations a
+    slot test counts in the bound."""
+    insts = [v for fn, v in listing.items() if "leaf_kernelILi0E" in fn]
+    assert len(insts) == 1, f"no single SASS function for leaf_kernel<0>: {list(listing)}"
+    insts = insts[0]
+    loops = []
+    for addr, op, target in insts:
+        if isinstance(target, int) and target <= addr:
+            body = [o for a, o, _ in insts if target <= a <= addr]
+            rcp = sum(o.startswith("MUFU.RCP") for o in body)
+            if rcp:
+                loops.append((len(body), rcp, target, addr, body))
+    assert loops, "U1 full: no loop holds the slot test's division"
+    n, rcp, lo, hi, body = min(loops)
+    ops = Counter(o.split(".")[0] for o in body)
+    fp32 = sum(ops[k] for k in ("FFMA", "FMUL", "FADD", "FSETP", "FMNMX", "FSEL", "MUFU",
+                                "FCHK"))
+    log(card, f"U1 full per-slot loop (SASS 0x{lo:04x}-0x{hi:04x}): {n} instructions for "
+              f"{rcp} slot tests -> {n / rcp:.1f} instructions per slot, {fp32 / rcp:.1f} of "
+              f"them fp32 (FFMA, FMUL, FADD, FSETP, FMNMX, FSEL, MUFU, FCHK), against the "
+              f"{FLOP_PER_TRI} fp32 operations a slot test counts in the bound; per slot: "
+              + ", ".join(f"{k} {v / rcp:.1f}" for k, v in ops.most_common()))
+    return dict(instructions_per_slot=n / rcp, fp32_per_slot=fp32 / rcp, slots_per_body=rcp,
+                opcodes_per_slot={k: v / rcp for k, v in ops.items()})
 
 
 def check_sass(census: dict) -> None:
@@ -1289,7 +1349,9 @@ def phase9(card, dev, ps, k1_primaries):
     from rfw_tpu_torch.tools import ubench_grid as ug
     from rfw_tpu_torch.tools import ubench_leaf as ul
 
-    check_sass(sass_census(card))
+    census, listing = sass_census(card)
+    check_sass(census)
+    loop = slot_loop(card, listing)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tri, obj = ul.make_inputs()
     tris, obj = ul.to_records(torch.from_numpy(tri)).to(dev), torch.from_numpy(obj).to(dev)
@@ -1339,6 +1401,24 @@ def phase9(card, dev, ps, k1_primaries):
         assert launches[k] > 0, f"the microbenchmark run never launched the {k} kernel"
 
     log(card, f"SM clock after U1 in one block (now, max) MHz: {clock}")
+    # U1 full in one block against the issue rate of its own SASS: an SM
+    # issues WARP_ISSUE_PER_CLOCK warp instructions a clock
+    mhz = float(clock.split(",")[0])
+    slots = ul.RAYS * 64 * U1_ITERS
+    u1_ms = leaf1["ms_per_call"]["full"]
+
+    def issue_ms(per_slot):
+        return slots * per_slot / 32 / (WARP_ISSUE_PER_CLOCK * mhz * 1e6) * 1e3
+
+    log(card, f"U1 full, one block: {u1_ms:.4f} ms for {slots} slot tests; issuing its SASS "
+              f"({loop['instructions_per_slot']:.1f} instructions a slot) at "
+              f"{WARP_ISSUE_PER_CLOCK} warp instructions a clock at {mhz:.0f} MHz takes "
+              f"{issue_ms(loop['instructions_per_slot']):.4f} ms "
+              f"({100 * issue_ms(loop['instructions_per_slot']) / u1_ms:.1f}% of the "
+              f"measured time), its fp32 instructions alone ({loop['fp32_per_slot']:.1f}) "
+              f"{issue_ms(loop['fp32_per_slot']):.4f} ms; the bound's {FLOP_PER_TRI} fp32 "
+              f"operations as {FLOP_PER_TRI // 2} multiply-adds {issue_ms(FLOP_PER_TRI / 2):.4f}"
+              f" ms")
     for v in ul.VARIANTS:
         log(card, f"U1 {v:9s}: {leaf1['us_per_iter'][v]:9.4f} us/iter in one block, "
                   f"{leafn['us_per_iter'][v]:9.4f} us/iter in {sms} blocks "
@@ -1378,6 +1458,161 @@ def phase9(card, dev, ps, k1_primaries):
               bound_by="bytes", max_abs_err=u2_err)
     return dict(U1=[u1], U2=[u2], launches=launches)
 
+
+def phase10(card, dev, parts, scene_np, lights_np, camera):
+    """The backend on the card: TorchBackend(1920, 1080) (default device:
+    the card) on the flagship scene fed through the contract (each mesh as
+    Mesh3D.view(), instances, materials, textures, the spot, sun and
+    area-light views, the camera), with phase 5's settings and the default
+    two_phase="auto". Checks: the first synchronize packs build_scene's
+    arenas field for field; the first frame launched K1, K2 and K3 (launch
+    counters reset just before it, read just after); its HDR frame equals
+    render_sample at sample_index 0 on the backend's own tensors;
+    tonemap(fxaa=True) on the card agrees with the CPU on the same
+    accumulator. Then 4 progressive frames, a motion sync of the 256
+    sphere instances against a full repack, a NORMAL frame and a frame with
+    a quad2d overlay, each with its time."""
+    from rfw_tpu_torch.backend import CameraView2D, InstancesView2D, InstancesView3D, RenderMode
+    from rfw_tpu_torch.mathx import orthographic_rh
+    from rfw_tpu_torch.models import quad2d
+    from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.render.film import tonemap
+    from rfw_tpu_torch.render.torch_backend import TorchBackend, TorchSettings
+    from rfw_tpu_torch.render.wavefront import (
+        RenderConfig, mat_feature_mask, render_sample, tex_kinds_mask,
+    )
+
+    t_phase = time.perf_counter()
+    settings = TorchSettings(samples_per_frame=1, max_bounces=BOUNCES, clamp=20.0,
+                             sky_intensity=0.35, sampler="sobol")
+    be = TorchBackend(W, H, settings)
+    assert be.device.type == "cuda", be.device
+    mats = parts["materials"]
+    meshes = {slot: mesh for slot, mesh, _ in parts["meshes"]}
+
+    def inst_view(slot, matrices):
+        n = matrices.shape[0]
+        return InstancesView3D(matrices=matrices, skin_ids=np.full(n, -1, np.int32),
+                               changed=np.ones(n, bool), local_aabb_min=meshes[slot].aabb_min,
+                               local_aabb_max=meshes[slot].aabb_max)
+
+    be.set_3d_meshes([(slot, mesh.view()) for slot, mesh in meshes.items()])
+    be.set_3d_instances([(slot, inst_view(slot, m)) for slot, m in parts["instances"]])
+    be.set_materials(mats.to_device(), [i for i, _ in mats.materials])
+    be.set_textures([(i, t.view()) for i, t in mats.textures])
+    be.set_spot_lights(parts["spot"])
+    be.set_directional_lights(parts["sun"])
+    be.set_area_lights(parts["area"])
+    be.synchronize()
+    cold_ms = be.stats["sync_ms"].last()
+    for f in scene_np._fields:
+        a, b = getattr(scene_np, f), getattr(be._scene_host, f)
+        assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), \
+            f"the backend's pack differs from build_scene's in {f}"
+    packed_lights = be._pack_lights()
+    for f in lights_np._fields:
+        assert np.array_equal(getattr(lights_np, f), getattr(packed_lights, f)), f
+    log(card, f"phase 10: TorchBackend({W}, {H}) on {be.device}; first synchronize (BLAS "
+              f"builds, pack, upload) {cold_ms:.2f} ms; its pack equals build_scene's in all "
+              f"{len(scene_np._fields)} TraceScene fields and the lights'")
+
+    view = camera.get_view(W, H)
+    torch.cuda.synchronize()
+    reset_launches()
+    frame = be.render(None, view)
+    launches = read_launches()
+    log(card, f"backend first frame: {be.stats['render_ms'].last():.2f} ms, launches "
+              f"{launches}")
+    for k in ("closest", "occluded", "items_closest"):
+        assert launches[k] > 0, f"TorchBackend.render never launched {k}"
+    assert frame.shape == (H, W, 4) and frame.dtype == np.uint8
+    hdr = be.hdr_frame()
+    cfg = RenderConfig(max_bounces=BOUNCES, clamp=20.0, sky_intensity=0.35, sampler="sobol",
+                       aovs=False, tex_mask=tex_kinds_mask(be._materials.tex),
+                       mat_features=mat_feature_mask(be._materials),
+                       has_area_lights=be._area.count > 0)
+    ref = render_sample(be._scene_dev, be._mats_dev, be._atlas_dev, be._lights_dev,
+                        torch.from_numpy(view.as_array()).to(dev), W, H, cfg,
+                        sample_index=0).radiance.cpu().numpy().reshape(H, W, 3)
+    same = np.array_equal(hdr, ref)
+    err = np.abs(hdr - ref)
+    px_ok = (err <= 1e-3 + 1e-3 * np.abs(ref)).all(axis=-1).mean()
+    log(card, f"backend HDR frame vs render_sample(sample_index=0): bit-identical {same}, "
+              f"{int((err > 0).any(axis=-1).sum())} pixels differ, max abs err "
+              f"{err.max():.3e}, {px_ok:.6f} of pixels within 1e-3 abs + 1e-3 rel, mean "
+              f"{hdr.mean():.6f} vs {ref.mean():.6f}")
+    assert np.isfinite(hdr).all() and hdr.mean() > 0, "non-finite or black HDR frame"
+    # both sides run render_sample on the same card tensors at sample 0, and
+    # no op of it was found not to be deterministic on CUDA: bit for bit
+    assert same, "the backend's HDR frame differs from render_sample's"
+
+    fx_card = tonemap(be._film, be._spp, W, H, fxaa=True).cpu().numpy()
+    fx_cpu = tonemap(be._film.cpu(), be._spp, W, H, fxaa=True).numpy()
+    diff = np.abs(fx_card.astype(np.int32) - fx_cpu.astype(np.int32)).max(axis=-1)
+    log(card, f"tonemap(fxaa=True) card vs CPU on the same accumulator: "
+              f"{(diff <= 1).mean():.6f} of pixels within 1, max {diff.max()}; FXAA changed "
+              f"{(fx_card != tonemap(be._film, be._spp, W, H).cpu().numpy()).any(-1).mean():.4f}"
+              f" of pixels")
+    assert (diff <= 1).mean() >= 0.999, "card FXAA disagrees with CPU FXAA"
+
+    for _ in range(4):
+        be.render(None, view)
+        log(card, f"backend progressive frame, spp {be._spp}: "
+                  f"{be.stats['render_ms'].last():.2f} ms, "
+                  f"{be.stats['mrays_per_s'].last():.3f} Mrays/s")
+    assert be._spp == 5
+
+    # a motion sync of the 256 sphere instances, then a full repack of the
+    # same state (cached BLAS): the same arenas either way
+    rng = np.random.default_rng(SEED)
+    moved = []
+    for slot, m in parts["instances"][:4]:
+        m = m.copy()
+        m[:, :3, 3] += rng.uniform(-0.3, 0.3, (m.shape[0], 3)).astype(np.float32)
+        moved.append((slot, inst_view(slot, m)))
+    geo = be._scene_dev.tri_v0
+    be.set_3d_instances(moved)
+    assert be._inst_dirty and not be._geo_dirty
+    be.synchronize()
+    motion_ms = be.stats["sync_ms"].last()
+    assert be._scene_dev.tri_v0 is geo, "the motion sync re-uploaded geometry"
+    after_motion = be._scene_host
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    be._rebuild_scene()
+    torch.cuda.synchronize()
+    full_ms = (time.perf_counter() - t0) * 1e3
+    for f in after_motion._fields:
+        assert np.array_equal(getattr(after_motion, f), getattr(be._scene_host, f)), \
+            f"motion sync and full repack differ in {f}"
+    log(card, f"backend sync of {sum(v.count for _, v in moved)} moved instances "
+              f"(repack_instances, host TLAS): {motion_ms:.2f} ms; a full repack of the "
+              f"same state (_rebuild_scene, BLAS cached): {full_ms:.2f} ms; the first sync "
+              f"(BLAS builds): {cold_ms:.2f} ms; motion and full repack give the same arenas")
+    be.render(None, view)
+    log(card, f"backend frame after the motion: {be.stats['render_ms'].last():.2f} ms")
+
+    normal = be.render(None, view, RenderMode.NORMAL)
+    log(card, f"backend NORMAL frame: {be.stats['render_ms'].last():.2f} ms, mean 8-bit "
+              f"value {normal[..., :3].mean():.3f}")
+    assert normal.shape == (H, W, 4) and normal[..., :3].std() > 1.0
+
+    # a quad over 9% of the frame, textured with the floor's checker
+    be.set_2d_meshes([(0, quad2d(center=(0.3 * W, 0.3 * H), size=(0.3 * W, 0.3 * H),
+                                 color=(1.0, 1.0, 1.0, 0.85), texture_id=0).view())])
+    be.set_2d_instances([(0, InstancesView2D(np.eye(4, dtype=np.float32)[None],
+                                             np.ones(1, bool)))])
+    view_2d = CameraView2D(matrix=orthographic_rh(0.0, float(W), float(H), 0.0, -1.0, 1.0))
+    plain = be.render(None, view, RenderMode.RESET)
+    t0 = time.perf_counter()
+    over = be.render(view_2d, view, RenderMode.RESET)  # the same sample, overlaid
+    wall = (time.perf_counter() - t0) * 1e3
+    changed = (np.abs(over.astype(np.int32) - plain.astype(np.int32)).max(-1) > 8).mean()
+    log(card, f"backend frame with a textured quad2d overlay: {wall:.2f} ms in all, "
+              f"{be.stats['render_ms'].last():.2f} ms of it before the overlay; "
+              f"{changed:.4f} of pixels changed by more than 8")
+    assert 0.05 < changed < 0.2, f"overlay covers {changed} of the frame"
+    log(card, f"phase 10: {time.perf_counter() - t_phase:.2f} s")
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1431,7 +1666,7 @@ def main() -> int:
     from rfw_tpu_torch.scenes import build_scene
 
     t0 = time.perf_counter()
-    scene_np, mats_np, lights_np, atlas_np, camera, pack_s = build_scene(SEED)
+    scene_np, mats_np, lights_np, atlas_np, camera, pack_s, parts = build_scene(SEED, views=True)
     scene, mats, lights, atlas = from_numpy_scene(scene_np, mats_np, lights_np, atlas_np, dev)
     torch.cuda.synchronize()
     log(card, f"scene: {scene_np.tri_v0.shape[0]} triangle rows, "
@@ -1518,6 +1753,9 @@ def main() -> int:
 
     # ---- 9. the microbenchmarks U1 and U2
     ubench = phase9(card, dev, ps, main_rows["closest"][0])
+
+    # ---- 10. the backend on the card
+    phase10(card, dev, parts, scene_np, lights_np, camera)
 
     def row(name, source, replaces, launches, rows, extra_err=(), **extra):
         b = max(rows, key=lambda r: r["bound_ms"]) if rows else None

@@ -6,15 +6,34 @@ modules the renderer needs (scene building, BVH build, packing) are numpy
 copies here, kept bit-identical to the originals. Module paths mirror
 `rfw_tpu`:
 
-  scene/, models/, mathx/, backend/, utils/   host scene authoring (numpy)
-  accel/bvh_cpu.py, render/pack.py,           BVH build and arena packing
-  render/lights_pack.py, render/atlas.py        (numpy)
-  convert.py                                  packed arenas -> device tensors
+  scene/, models/ (mesh3d, mesh2d,            host scene authoring (numpy):
+      primitives), mathx/, utils/ (log,         meshes with their backend
+      timing, collections)                      views, the 2D quad
+  backend/structs.py, backend/lights.py       the views crossing the backend
+                                                boundary
+  backend/contract.py                         the Backend protocol (14
+                                                methods), RenderMode,
+                                                init_from_window_handle
+  accel/bvh_cpu.py, render/pack.py,           BVH build/refit and arena
+  render/lights_pack.py, render/atlas.py        packing, deformed meshes and
+                                                the instance-only repack
+                                                (numpy)
+  render/overlay.py                           the 2D overlay rasterizer and
+                                                compositor (numpy)
+  convert.py                                  packed arenas -> device tensors,
+                                                each part alone, the scene
+                                                equality-gated
+  render/torch_backend.py                     TorchBackend: the Backend
+                                                contract over the path tracer
+                                                (syncs, progressive film, AOV
+                                                modes, host skinning/morphs,
+                                                overlay)
   scenes.py                                   seeded procedural scenes (the
                                               flagship-scale and the
                                               instance-heavy one)
   render/{wavefront,disney,sampler,atlas,     the wavefront path tracer (torch)
-          intersect,film}.py
+          intersect,film,fxaa}.py               and its film: tonemap with the
+                                                FXAA post-pass
   render/twophase.py                          two-phase phase A by a dense
                                               (R, I) scan of instance boxes
   ops/traverse.py + csrc/traverse.cu          K1/K2: two-level BVH traversal

@@ -170,3 +170,24 @@ def triangle_aabbs(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> Tuple[np.n
     mn = np.minimum(np.minimum(v0, v1), v2)
     mx = np.maximum(np.maximum(v0, v1), v2)
     return mn.astype(np.float32), mx.astype(np.float32)
+
+
+def refit_bvh(bvh: BvhNodes, aabb_min: np.ndarray, aabb_max: np.ndarray) -> BvhNodes:
+    """Refit node bounds bottom-up for deformed primitives, keeping topology
+    (reference gpu-rt refit_bvh :1345-1384 semantics). Host-side; the
+    numpy path of `rfw_tpu.accel.bvh_cpu.refit_bvh`."""
+    n = bvh.num_nodes
+    nmin = bvh.node_min.copy()
+    nmax = bvh.node_max.copy()
+    # Process nodes in reverse index order: children always have higher
+    # indices than parents in our layout.
+    for i in range(n - 1, -1, -1):
+        if bvh.node_count[i] > 0:
+            ids = bvh.prim_order[bvh.node_left[i] : bvh.node_left[i] + bvh.node_count[i]]
+            nmin[i] = aabb_min[ids].min(axis=0)
+            nmax[i] = aabb_max[ids].max(axis=0)
+        else:
+            l, r = bvh.node_left[i], bvh.node_right[i]
+            nmin[i] = np.minimum(nmin[l], nmin[r])
+            nmax[i] = np.maximum(nmax[l], nmax[r])
+    return BvhNodes(nmin, nmax, bvh.node_left, bvh.node_right, bvh.node_count, bvh.prim_order)

@@ -7,6 +7,7 @@ from rfw_tpu_torch.mathx.transform import (
     look_at_rh,
     mat4_identity,
     normalize,
+    orthographic_rh,
     perspective_rh,
     quat_identity,
     quat_to_mat3,

@@ -80,6 +80,17 @@ def perspective_rh(fov_y_rad: float, aspect: float, near: float, far: float) -> 
     return m
 
 
+def orthographic_rh(l: float, r: float, b: float, t: float, near: float, far: float) -> np.ndarray:
+    m = mat4_identity()
+    m[0, 0] = 2.0 / (r - l)
+    m[1, 1] = 2.0 / (t - b)
+    m[2, 2] = 1.0 / (near - far)
+    m[0, 3] = -(r + l) / (r - l)
+    m[1, 3] = -(t + b) / (t - b)
+    m[2, 3] = near / (near - far)
+    return m
+
+
 def inverse_transpose3(m: np.ndarray) -> np.ndarray:
     """Normal matrix: inverse-transpose of the upper 3x3."""
     return np.linalg.inv(m[..., :3, :3]).swapaxes(-1, -2).astype(np.float32)

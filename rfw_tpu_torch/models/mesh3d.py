@@ -1,7 +1,8 @@
 """3D mesh IR + vectorized geometry processing (host numpy).
 
-Copy of `rfw_tpu/models/mesh3d.py` without the backend-view lowering, so
-that the arrays a mesh produces are bit-identical to the JAX package's.
+Copy of `rfw_tpu/models/mesh3d.py`, so that the arrays a mesh produces
+(and its `view()` for the backend boundary) are bit-identical to the JAX
+package's.
 Triangles are sorted by material id at build time so per-material ranges
 are contiguous.
 """
@@ -12,6 +13,8 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+
+from rfw_tpu_torch.backend.structs import MeshView3D
 
 
 def _smooth_normals(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
@@ -108,6 +111,26 @@ class Mesh3D:
     @property
     def has_morphs(self) -> bool:
         return self.morph_targets is not None and len(self.morph_targets) > 0
+
+    def view(self) -> MeshView3D:
+        return MeshView3D(
+            positions=self.positions,
+            normals=self.normals,
+            uvs=self.uvs,
+            tangents=self.tangents,
+            indices=self.indices,
+            tri_material=self.tri_material,
+            tri_light=self.tri_light,
+            ranges=self.ranges,
+            joints=self.joints,
+            weights=self.weights,
+            aabb_min=self.aabb_min,
+            aabb_max=self.aabb_max,
+            name=self.name,
+            morph_targets=self.morph_targets,
+            morph_normals=self.morph_normals,
+            morph_tangents=self.morph_tangents,
+        ).validate()
 
     def tri_vertices(self) -> np.ndarray:
         """(T,3,3) world==object-space triangle corners."""

@@ -1,6 +1,6 @@
-"""Procedural primitives (host copy of `rfw_tpu/models/primitives.py`,
-3D primitives only): Quad3D, Plane, an icosphere (20*4^q triangles) and a
-box. All vectorized; subdivision is a batched midpoint split.
+"""Procedural primitives (host copy of `rfw_tpu/models/primitives.py`):
+Quad3D, Plane, an icosphere (20*4^q triangles), a box and the 2D quad.
+All vectorized; subdivision is a batched midpoint split.
 """
 
 from __future__ import annotations
@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 
 from rfw_tpu_torch.mathx import normalize
+from rfw_tpu_torch.models.mesh2d import Mesh2D
 from rfw_tpu_torch.models.mesh3d import Mesh3D, build_mesh3d
 
 
@@ -138,3 +139,22 @@ def cube(
         normals=np.array(nrm, np.float32), uvs=np.array(uv, np.float32),
         material_ids=material_id, name="cube",
     )
+
+
+def quad2d(
+    center=(0.0, 0.0), size=(1.0, 1.0), layer: float = 0.0,
+    color=(1.0, 1.0, 1.0, 1.0), texture_id: int = -1
+) -> Mesh2D:
+    """2D quad (reference objects_2d/quad.rs)."""
+    cx, cy = center
+    hw, hh = size[0] * 0.5, size[1] * 0.5
+    pos = np.array(
+        [
+            [cx - hw, cy - hh, layer], [cx + hw, cy - hh, layer], [cx + hw, cy + hh, layer],
+            [cx - hw, cy - hh, layer], [cx + hw, cy + hh, layer], [cx - hw, cy + hh, layer],
+        ],
+        np.float32,
+    )
+    uv = np.array([[0, 1], [1, 1], [1, 0], [0, 1], [1, 0], [0, 0]], np.float32)
+    col = np.tile(np.asarray(color, np.float32), (6, 1))
+    return Mesh2D.new(pos, uv, col, texture_id, name="quad2d")

@@ -1,5 +1,5 @@
 """Progressive film accumulation + tonemapping (counterpart of
-`rfw_tpu/render/film.py`, without the FXAA post-pass).
+`rfw_tpu/render/film.py`, with its optional FXAA post-pass).
 
 The film is a device-resident (H*W,3) float32 accumulator; `add_sample`
 adds one sample in place (the JAX version donates its buffer to the same
@@ -35,8 +35,10 @@ def tonemap(
     height: int,
     exposure: float = 1.0,
     mode: str = "aces",
+    fxaa: bool = False,
 ) -> torch.Tensor:
-    """(H*W,3) accumulator -> (H,W,4) uint8 sRGB frame."""
+    """(H*W,3) accumulator -> (H,W,4) uint8 sRGB frame. fxaa=True runs the
+    FXAA post-pass on the encoded frame (reference deferred_fxaa.frag)."""
     c = accum / max(float(spp), 1.0) * exposure
     if mode == "aces":
         c = _aces(c)
@@ -48,6 +50,10 @@ def tonemap(
     c = torch.where(c <= 0.0031308, 12.92 * c,
                     1.055 * torch.pow(c, 1.0 / 2.4) - 0.055)
     c = torch.clamp(c, 0.0, 1.0)
+    if fxaa:
+        from rfw_tpu_torch.render.fxaa import fxaa as _fxaa
+
+        c = _fxaa(c.reshape(height, width, 3)).reshape(-1, 3)
     rgb = (c * 255.0 + 0.5).to(torch.uint8).reshape(height, width, 3)
     alpha = torch.full((height, width, 1), 255, dtype=torch.uint8, device=accum.device)
     return torch.cat([rgb, alpha], dim=-1)

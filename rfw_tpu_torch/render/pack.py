@@ -1,8 +1,8 @@
 """Flatten scene data into packed arenas ("TraceScene").
 
-Host numpy copy of `rfw_tpu/render/pack.py` (static scenes: no deformed
-meshes, no instance-only repack), kept bit-identical to it so both
-renderers trace the same arenas. All cross-array offsets are pre-applied
+Host numpy copy of `rfw_tpu/render/pack.py` (with deformed meshes and the
+instance-only repack), kept bit-identical to it so both renderers trace
+the same arenas. All cross-array offsets are pre-applied
 at pack time, so the traversal never consults an offset table —
 
   * BLAS child indices are rebased into one global node arena;
@@ -21,7 +21,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 
 from rfw_tpu_torch.accel.bvh_cpu import (
-    TREELET, BvhNodes, build_bvh_sah, triangle_aabbs,
+    TREELET, BvhNodes, build_bvh_sah, refit_bvh, triangle_aabbs,
 )
 from rfw_tpu_torch.mathx import Aabb, aabb_transform, inverse_transpose3
 from rfw_tpu_torch.models.mesh3d import Mesh3D
@@ -265,12 +265,25 @@ def _pad_gather(ordered: np.ndarray, gather: np.ndarray, fill=0):
 def pack_trace_scene(
     meshes: Sequence[Tuple[int, Mesh3D, Optional[BvhNodes]]],
     instances: Sequence[Tuple[int, np.ndarray]],
+    deformed_positions: Optional[dict] = None,
+    built_blas_out: Optional[dict] = None,
+    deformed_attrs: Optional[dict] = None,
 ) -> TraceScene:
     """Build a TraceScene.
 
     meshes: (mesh_slot, mesh, optional prebuilt BLAS) — BLAS built here if None.
     instances: (mesh_slot, (I,4,4) world matrices).
+    deformed_positions: {mesh_slot: (V,3)} skinned vertex override (BLAS is
+    then rebuilt for those meshes).
+    deformed_attrs: {mesh_slot: (normals (V,3), tangents (V,4))} skinned
+    shading-attribute override — baked into tri_shade so posed characters
+    shade with posed normals (reference structs.rs:785-877 transforms
+    normals/tangents through the blended joint inverse-transpose).
+    built_blas_out: optional dict filled with {slot: BvhNodes} for every
+    BLAS built here — callers cache them to skip rebuilds next pack.
     """
+    deformed_positions = deformed_positions or {}
+    deformed_attrs = deformed_attrs or {}
     depth8 = WIDE_DEPTH
     arity8 = 1 << depth8
 
@@ -293,15 +306,24 @@ def pack_trace_scene(
     mesh_tri_spans = {}  # slot -> (lo, hi) triangle-arena slice
 
     for slot, mesh, prebuilt in meshes:
-        pos = mesh.positions
+        pos = deformed_positions.get(slot, mesh.positions)
         i0, i1, i2 = mesh.indices[:, 0], mesh.indices[:, 1], mesh.indices[:, 2]
         v0 = pos[i0]
         e1 = pos[i1] - v0
         e2 = pos[i2] - v0
         bvh = prebuilt
-        if bvh is None:
+        if bvh is not None and slot in deformed_positions:
+            # skinned/deformed mesh with cached topology: REFIT instead of a
+            # full SAH rebuild (reference gpu-rt lib.rs:1345-1384 refits
+            # per-mesh BVHs per frame). Topology comes from the first build;
+            # bounds tighten bottom-up to the new pose.
+            mn, mx = triangle_aabbs(v0, v0 + e1, v0 + e2)
+            bvh = refit_bvh(bvh, mn, mx)
+        elif bvh is None:
             mn, mx = triangle_aabbs(v0, v0 + e1, v0 + e2)
             bvh = build_bvh_sah(mn, mx, max_leaf=TREELET)
+            if built_blas_out is not None:
+                built_blas_out[slot] = bvh
 
         # TREELET-align leaf triangle ranges (see _align_leaf_tris)
         bvh, gather, _padded = _align_leaf_tris(bvh, len(i0))
@@ -319,7 +341,7 @@ def pack_trace_scene(
         # filled with degenerate triangles) so leaves are contiguous and no
         # extra indirection is needed at trace time.
         po = bvh.prim_order.astype(np.int64)
-        nrm, tangents = mesh.normals, mesh.tangents
+        nrm, tangents = deformed_attrs.get(slot, (mesh.normals, mesh.tangents))
         shade = np.concatenate([
             nrm[i0[po]], nrm[i1[po]], nrm[i2[po]],
             mesh.uvs[i0[po]], mesh.uvs[i1[po]], mesh.uvs[i2[po]],
@@ -521,6 +543,83 @@ def _mesh_range_table(spans: dict) -> np.ndarray:
     for s, (lo, hi) in spans.items():
         table[s] = (lo, hi)
     return table
+
+
+def repack_instances(
+    base: TraceScene,
+    meshes_info: Sequence[Tuple[int, np.ndarray, np.ndarray]],
+    instances: Sequence[Tuple[int, np.ndarray]],
+) -> TraceScene:
+    """Instance/TLAS-only update: reuse all geometry arenas of `base`,
+    replacing instance matrices and rebuilding the TLAS (the per-frame path
+    for moving instances — reference gpu-rt rebuilds only the TLAS each
+    synchronize, lib.rs:1570-1581).
+
+    meshes_info: (slot, local_aabb_min, local_aabb_max) for every mesh;
+    instances must cover the same mesh slots as the base pack (per-slot
+    instance COUNTS may change only if the BLAS roots per instance are
+    recomputed — they are, from mesh slots).
+    """
+    info = {slot: (mn, mx) for slot, mn, mx in meshes_info}
+    # recover wide roots per mesh slot from the base pack (skip capacity
+    # padding rows, marked inst_mesh == -1)
+    slot_root = {}
+    slot_wroot = {}
+    for i in range(base.inst_matrix.shape[0]):
+        m = int(base.inst_mesh[i])
+        if m < 0:
+            continue
+        slot_root[m] = int(base.blas_root[i])
+        slot_wroot[m] = int(base.blas_wide_root[i])
+
+    mats_list, mesh_list = [], []
+    for slot, mats in instances:
+        if slot not in slot_root or slot not in info:
+            continue
+        mats = np.asarray(mats, np.float32).reshape(-1, 4, 4)
+        mats_list.append(mats)
+        mesh_list.append(np.full(mats.shape[0], slot, np.int32))
+    if not mats_list:
+        return base
+    inst_matrix = np.concatenate(mats_list)
+    inst_mesh = np.concatenate(mesh_list)
+    inst_inv = np.linalg.inv(inst_matrix).astype(np.float32)
+    inst_normal = inverse_transpose3(inst_matrix)
+    blas_root = np.array([slot_root[int(m)] for m in inst_mesh], np.int32)
+    blas_wide_root = np.array([slot_wroot[int(m)] for m in inst_mesh], np.int32)
+
+    local_min = np.stack([info[int(m)][0] for m in inst_mesh])
+    local_max = np.stack([info[int(m)][1] for m in inst_mesh])
+    wb = aabb_transform(Aabb(local_min.astype(np.float32),
+                             local_max.astype(np.float32)), inst_matrix)
+    tlas = build_bvh_sah(wb.min, wb.max, max_leaf=1)
+    tlas_wf, tlas_wi, _ = build_wide_nodes(tlas, tlas=True)
+    # match the base pack's supernode arity (shape-derived, not env)
+    base_depth = int(base.blas8_code.shape[1]).bit_length() - 1
+    tlas8_box, tlas8_code, tlas8_cnt = build_widen(
+        tlas, tlas=True, depth=base_depth)
+    slot_root8 = {}
+    for i in range(base.inst_matrix.shape[0]):
+        m = int(base.inst_mesh[i])
+        if m >= 0:
+            slot_root8[m] = int(base.blas8_root[i])
+    blas8_root = np.array([slot_root8[int(m)] for m in inst_mesh], np.int32)
+
+    P = _pad_rows
+    return base._replace(
+        tlas_min=P(tlas.node_min), tlas_max=P(tlas.node_max),
+        tlas_left=P(tlas.node_left), tlas_right=P(tlas.node_right),
+        tlas_count=P(tlas.node_count), tlas_prim=P(tlas.prim_order),
+        tlas_wide_f=P(tlas_wf), tlas_wide_i=P(tlas_wi, fill=-1),
+        tlas8_box=P(tlas8_box), tlas8_code=P(tlas8_code, fill=-1),
+        tlas8_cnt=P(tlas8_cnt),
+        inst_matrix=P(inst_matrix), inst_inv=P(inst_inv),
+        inst_normal=P(inst_normal), inst_mesh=P(inst_mesh, fill=-1),
+        inst_aabb_min=P(wb.min.astype(np.float32), fill=np.inf),
+        inst_aabb_max=P(wb.max.astype(np.float32), fill=-np.inf),
+        blas_root=P(blas_root), blas_wide_root=P(blas_wide_root),
+        blas8_root=P(blas8_root),
+    )
 
 
 def build_widen(bvh: BvhNodes, tlas: bool, leaf_base_offset: int = 0,

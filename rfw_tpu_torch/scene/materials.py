@@ -26,6 +26,7 @@ from rfw_tpu_torch.backend.structs import (
     MATFLAG_HAS_NORMAL_MAP,
     MATFLAG_HAS_ROUGHNESS_MAP,
     MATFLAG_HAS_SHEEN_MAP,
+    TextureView,
 )
 from rfw_tpu_torch.utils.collections import FlaggedStorage
 
@@ -106,6 +107,10 @@ class Texture:
     @property
     def height(self) -> int:
         return self.mips[0].shape[0]
+
+    def view(self) -> TextureView:
+        return TextureView(mips=self.mips, srgb=self.srgb)
+
 
 # ----------------------------------------------------------------- materials
 @dataclass

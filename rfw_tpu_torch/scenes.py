@@ -19,9 +19,13 @@ import time
 import numpy as np
 
 
-def build_scene(seed: int):
+def build_scene(seed: int, views: bool = False):
     """Procedural scene at the flagship scale, packed by the port's own
-    numpy packers. Returns host arenas + camera view vector builder."""
+    numpy packers. Returns (TraceScene, DeviceMaterials, DeviceLights,
+    TextureAtlas, Camera3D, pack seconds), host arrays; with views=True
+    also what a backend is fed to pack the same arenas: a dict of the
+    meshes and instances as `pack_trace_scene` took them, the `Materials`,
+    and the spot, sun and area-light views."""
     from rfw_tpu_torch.backend.lights import (
         DirectionalLightsView, PointLightsView, SpotLightsView,
     )
@@ -103,7 +107,11 @@ def build_scene(seed: int):
     camera = Camera3D(fov=55).look_at(
         center + np.array([0.55, 0.35, 0.75], np.float32) * ext * 0.62, center)
     atlas = pack_atlas([t for _, t in mats.textures])
-    return scene, mats.to_device(), lights, atlas, camera, pack_s
+    out = (scene, mats.to_device(), lights, atlas, camera, pack_s)
+    if views:
+        return out + (dict(meshes=meshes, instances=instances, materials=mats, spot=spot,
+                           sun=sun, area=area),)
+    return out
 
 
 def build_heavy_scene(seed: int, n_inst: int):

@@ -1,4 +1,5 @@
-"""Small seeded test scene, built with either package's host API.
+"""Small seeded test scene, built with either package's host API, and the
+sync stream of a scene replayed into either package's backend.
 
 `build("rfw_tpu", ...)` and `build("rfw_tpu_torch", ...)` run the same
 calls through the JAX package and through the port, so the tests can hold
@@ -7,13 +8,78 @@ both renderers. The scene: three icosphere meshes (metal, clearcoat
 plastic, glass) with a few seeded instances each, a checker-textured floor
 quad, an emissive quad registered as two area lights, a spot light and a
 sun.
+
+`recorder()` is rfw_tpu's RecordingBackend keeping a copy of every call's
+arguments; `replay` feeds the recorded calls to a backend, with each view
+rebuilt as the port's class of the same name (`to_port`) for the port's.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import enum
 import importlib
 
 import numpy as np
+
+#: the Backend methods a scene's synchronize calls
+STREAM = ("set_3d_meshes", "unload_3d_meshes", "set_3d_instances", "set_2d_meshes",
+          "set_2d_instances", "set_materials", "set_textures", "set_skybox",
+          "set_point_lights", "set_spot_lights", "set_area_lights",
+          "set_directional_lights", "set_skins", "synchronize")
+
+
+def recorder():
+    """An rfw_tpu RecordingBackend that also keeps, in `.stream`, a deep
+    copy of each call's arguments; `.take()` returns and clears it."""
+    from rfw_tpu.backend.contract import RecordingBackend
+
+    def keep(name):
+        base = getattr(RecordingBackend, name)
+
+        def call(self, *args):
+            self.stream.append((name, copy.deepcopy(args)))
+            return base(self, *args)
+        return call
+
+    class StreamRecorder(RecordingBackend):
+        def __init__(self):
+            super().__init__()
+            self.stream = []
+
+        def take(self):
+            out, self.stream = self.stream, []
+            return out
+
+    for name in STREAM:
+        setattr(StreamRecorder, name, keep(name))
+    return StreamRecorder()
+
+
+def _port_class(x):
+    mod = importlib.import_module(type(x).__module__.replace("rfw_tpu.", "rfw_tpu_torch.", 1))
+    return getattr(mod, type(x).__name__)
+
+
+def to_port(x):
+    """rfw_tpu views (dataclasses of rfw_tpu.backend.*) and RenderMode
+    members, alone or inside lists and tuples, rebuilt as the port's class
+    of the same name (views from their fields, members by name); anything
+    else as it is."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_port(e) for e in x)
+    if isinstance(x, enum.Enum):
+        return _port_class(x)[x.name]
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return _port_class(x)(**{f.name: getattr(x, f.name) for f in dataclasses.fields(x)})
+    return x
+
+
+def replay(stream, backend, port: bool = False):
+    """Call `backend` with the recorded calls, in order."""
+    for name, args in stream:
+        getattr(backend, name)(*(to_port(args) if port else args))
 
 
 def build(pkg: str, seed: int = 0, n_inst: int = 3, quality: int = 1,

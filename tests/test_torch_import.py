@@ -35,8 +35,22 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "rfw_tpu") for m in sys.modules)
+print(" ".join(names))
 print("imported", len(names))
 """
+
+#: modules that must be among those imported with jax blocked (the
+#: backend layer and the host copies it needs, beside the renderer's)
+MODULES = [
+    "rfw_tpu_torch.backend.contract", "rfw_tpu_torch.backend.structs",
+    "rfw_tpu_torch.backend.lights", "rfw_tpu_torch.models.mesh2d",
+    "rfw_tpu_torch.models.mesh3d", "rfw_tpu_torch.models.primitives",
+    "rfw_tpu_torch.utils.log", "rfw_tpu_torch.utils.timing",
+    "rfw_tpu_torch.render.pack", "rfw_tpu_torch.render.overlay",
+    "rfw_tpu_torch.render.fxaa", "rfw_tpu_torch.render.film",
+    "rfw_tpu_torch.render.torch_backend", "rfw_tpu_torch.render.wavefront",
+    "rfw_tpu_torch.convert", "rfw_tpu_torch.scenes",
+]
 
 
 def test_port_imports_without_jax():
@@ -44,8 +58,11 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _NO_JAX], env=env, cwd=str(REPO),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    n = int(out.stdout.split()[-1])
+    lines = out.stdout.strip().splitlines()
+    n = int(lines[-1].split()[-1])
     assert n >= 20, out.stdout
+    missing = set(MODULES) - set(lines[-2].split())
+    assert not missing, missing
 
 
 def _imported_modules(path: pathlib.Path):
