@@ -76,15 +76,22 @@ Phases (any failed check raises, so the script exits nonzero):
      whose first turn is the counted run (every kernel must launch);
   9. the microbenchmarks of rfw_tpu_torch.tools: U1 (the leaf-test stages)
      in every variant against its plain version in one block and in a
-     block per SM, U2 (K1's call shape without the walk) in every variant
-     against its plain version at 1 and 512 tiles; then the counted run of
-     their entry points (U1 in one block and in a block per SM, U2 over 1,
-     8, 64 and 512 tiles with K1 on the same rays), and K1's time on the
-     1080p primaries split by the cost model they give (call shape, leaf
-     tests, node visits, remainder), once by the plain walk's counts and
-     once by the kernel's own; and the SASS of U1 full's per-slot loop
-     (instructions per slot test, by opcode, beside the 44 fp32 operations
-     the bound counts) and the time issuing it takes;
+     block per SM (identical; `fused` and `staged`, the slot test in the
+     reference tool's arithmetic in K1's leaf loop and in U1's own staged
+     loop, also at 512 iterations, within 3e-5 relative on all but at
+     most 4 rays of a copy, copies and aux identical), U2 (K1's
+     call shape without the walk) in every variant against its plain
+     version at 1 and 512 tiles; then the counted run of their entry
+     points (U1 in one block and in a block per SM, U2 over 1, 8, 64 and
+     512 tiles with K1 on the same rays), and K1's time on the 1080p
+     primaries split by the cost model they give (call shape, leaf tests,
+     node visits, remainder), once by the plain walk's counts and once by
+     the kernel's own, and its leaf tests priced at U1 fused's rate; the
+     SASS of U1 full's, fused's and staged's per-slot loops (instructions
+     per slot test, by opcode, beside the 44 fp32 operations the bound
+     counts) and the time issuing them takes; and the SASS of K1-K6, whose
+     slot loops must keep the exact division (each instance's loop and a
+     digest of its code are printed);
  10. the backend on the card: TorchBackend(1920, 1080) on the flagship
      scene fed through the 14-method contract (Mesh3D.view() meshes,
      instances, materials, textures, spot, sun and area lights), phase 5's
@@ -104,9 +111,10 @@ before the last two is {"kernels": [...]}: per kernel, its launches in its
 path's counted run, its largest disagreement with the plain version, its
 time and the plain version's per 1080p sample (the sum over the sample's
 calls, each timed on that call's captured inputs; for U1 one call of
-`full` at 512 iterations in one block, for U2 one `trivial` launch at 512
-tiles), the least time the card could take for the same work (bytes over
-3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is larger; U1's
+`full` at 512 iterations in one block, with `fused`'s and `staged`'s
+beside it, for U2 one `trivial` launch at 512 tiles), the least time the
+card could take for the same work (bytes over 3.35 TB/s or fp32
+operations over 67 TFLOP/s, whichever is larger; U1's
 operations over the fp32 peak of the one SM it occupies; K1-K5's
 operations by whichever of the kernel's walk and the plain walk made
 fewer, the plain walk's alone in bound_ms_plain_counts; K6's by its own
@@ -142,6 +150,10 @@ N_HEAVY = 10000  # instances of the phase-8 scene
 HEAVY_SPP = 3
 U1_ITERS, U1_REPS = 512, 3  # the reference tool's defaults
 U1_CMP_ITERS = 16
+# U1 `fused` and `staged` against their plain version, which cannot round the card's
+# MUFU.RCP alike: t within this relative error but on at most this many of
+# a copy's 1,024 rays (tests/test_torch_ubench.py's tolerance)
+U1_FUSED_REL, U1_FUSED_LANES = 3e-5, 4
 U2_TILES, U2_REPS = (1, 8, 64, 512), 3
 # item buffer of the forced two-phase any-hit call whose undecided rays K2
 # retraces (phase 7): small enough that rays lose items
@@ -1240,21 +1252,27 @@ def sm_clock_mhz() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-SASS_OPS = ("LDG", "SHFL", "MUFU.RCP", "F2I", "FADD", "FMUL", "FFMA", "BRA")
+SASS_OPS = ("LDG", "LDS", "SHFL", "MUFU.RCP", "FCHK", "F2I", "FADD", "FMUL", "FFMA", "BRA")
+UBENCH_LIBS = ("ubench_leaf", "ubench_grid")
+WALK_LIBS = ("traverse", "traverse_items", "traverse_entries")
 
 
-def sass_census(card):
-    """Per kernel of the microbenchmarks, the count of each SASS opcode that
-    carries the work they time (`cuobjdump -sass` of the built libraries):
-    nvcc deletes work whose result is never stored, so this shows that the
-    re-base, the leaf loop, the epilogue's division and the fetch chains
-    are still in the code. Returns ({kernel symbol: Counter}, {kernel
-    symbol: [(address, opcode, branch target or None)]})."""
+def sass_census(card, names=UBENCH_LIBS + WALK_LIBS):
+    """Per kernel of the named libraries, the count of each SASS opcode
+    (`cuobjdump -sass` of the built libraries): nvcc deletes work whose
+    result is never stored, so this shows that the re-base, the leaf loop,
+    the epilogue's division and the fetch chains of the microbenchmarks
+    are still in the code, and that the walks keep their exact division.
+    Logs the microbenchmarks' censuses. Returns ({kernel symbol: Counter},
+    {kernel symbol: [(address, opcode, branch target or None)]}, {kernel
+    symbol: sha256 of its instruction lines})."""
+    import hashlib
+
     from rfw_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
-    census, listing, labels = {}, {}, {}
-    for b in _build.build(["ubench_leaf", "ubench_grid"]):
+    census, listing, labels, text = {}, {}, {}, {}
+    for b in _build.build(list(names)):
         sass = subprocess.run([str(tool), "-sass", str(b.path)], capture_output=True,
                               text=True, check=True, timeout=120).stdout
         fn = None
@@ -1262,7 +1280,7 @@ def sass_census(card):
             m = re.match(r"\s*Function : (\S+)", line)
             if m:
                 fn = m.group(1)
-                census[fn], listing[fn], labels[fn] = Counter(), [], {}
+                census[fn], listing[fn], labels[fn], text[fn] = Counter(), [], {}, []
                 continue
             m = re.match(r"\s*(\.L_x_\d+):", line)
             if fn and m:  # a label names the next instruction
@@ -1272,6 +1290,7 @@ def sass_census(card):
                           line)
             if fn and m:
                 op = m.group(2)
+                text[fn].append(line.strip())
                 census[fn][op.split(".")[0]] += 1
                 if op.startswith("MUFU.RCP"):
                     census[fn]["MUFU.RCP"] += 1
@@ -1283,19 +1302,22 @@ def sass_census(card):
     for fn, insts in listing.items():  # labels -> the addresses they name
         at = {name: insts[i][0] for name, i in labels[fn].items() if i < len(insts)}
         listing[fn] = [(a, op, at.get(t) if isinstance(t, str) else t) for a, op, t in insts]
+    digest = {fn: hashlib.sha256("\n".join(v).encode()).hexdigest()[:16]
+              for fn, v in text.items()}
     for fn, c in sorted(census.items()):
-        log(card, f"SASS {fn}: " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
-    return census, listing
+        if "leaf_kernel" in fn or "grid_kernel" in fn:
+            log(card, f"SASS {fn}: " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
+    return census, listing, digest
 
 
-def slot_loop(card, listing) -> dict:
-    """The SASS of U1 `full`'s per-slot loop: the smallest backward branch
-    of `leaf_kernel<0>` whose body holds the slot test's division
-    (MUFU.RCP, one per slot; `leaf_test` unrolls its slot loop by 2), its
-    instructions per slot and their opcodes, beside the fp32 operations a
-    slot test counts in the bound."""
-    insts = [v for fn, v in listing.items() if "leaf_kernelILi0E" in fn]
-    assert len(insts) == 1, f"no single SASS function for leaf_kernel<0>: {list(listing)}"
+def slot_loop(card, listing, symbol: str, label: str, quiet=False) -> dict:
+    """The SASS of a kernel's per-slot loop: the smallest backward branch
+    of the one function whose symbol holds `symbol` whose body holds the
+    slot test's reciprocal (MUFU.RCP, one per slot; `leaf_test` unrolls its
+    slot loop by 2), its instructions per slot and their opcodes, beside
+    the fp32 operations a slot test counts in the bound."""
+    insts = [v for fn, v in listing.items() if symbol in fn]
+    assert len(insts) == 1, f"no single SASS function for {symbol}: {list(listing)}"
     insts = insts[0]
     loops = []
     for addr, op, target in insts:
@@ -1304,18 +1326,48 @@ def slot_loop(card, listing) -> dict:
             rcp = sum(o.startswith("MUFU.RCP") for o in body)
             if rcp:
                 loops.append((len(body), rcp, target, addr, body))
-    assert loops, "U1 full: no loop holds the slot test's division"
+    assert loops, f"{label}: no loop holds the slot test's reciprocal"
     n, rcp, lo, hi, body = min(loops)
     ops = Counter(o.split(".")[0] for o in body)
     fp32 = sum(ops[k] for k in ("FFMA", "FMUL", "FADD", "FSETP", "FMNMX", "FSEL", "MUFU",
                                 "FCHK"))
-    log(card, f"U1 full per-slot loop (SASS 0x{lo:04x}-0x{hi:04x}): {n} instructions for "
-              f"{rcp} slot tests -> {n / rcp:.1f} instructions per slot, {fp32 / rcp:.1f} of "
-              f"them fp32 (FFMA, FMUL, FADD, FSETP, FMNMX, FSEL, MUFU, FCHK), against the "
-              f"{FLOP_PER_TRI} fp32 operations a slot test counts in the bound; per slot: "
-              + ", ".join(f"{k} {v / rcp:.1f}" for k, v in ops.most_common()))
+    if not quiet:
+        log(card, f"{label} per-slot loop (SASS 0x{lo:04x}-0x{hi:04x}): {n} instructions "
+                  f"for {rcp} slot tests -> {n / rcp:.1f} instructions per slot, "
+                  f"{fp32 / rcp:.1f} of them fp32 (FFMA, FMUL, FADD, FSETP, FMNMX, FSEL, "
+                  f"MUFU, FCHK), against the {FLOP_PER_TRI} fp32 operations a slot test "
+                  f"counts in the bound; per slot: "
+                  + ", ".join(f"{k} {v / rcp:.1f}" for k, v in ops.most_common()))
     return dict(instructions_per_slot=n / rcp, fp32_per_slot=fp32 / rcp, slots_per_body=rcp,
                 opcodes_per_slot={k: v / rcp for k, v in ops.items()})
+
+
+def check_walk_sass(card, census, listing, digest) -> None:
+    """K1-K6 keep the exact contract: the slot loop of every instance of
+    traverse_kernel (K1/K2), items_kernel (K3/K5) and dense_items_kernel
+    (K6) holds one exact division (FCHK and its MUFU.RCP) a slot test;
+    entries_kernel (K4, no slot test) keeps its reciprocals. Logs
+    each instance's slot loop and the digest of its SASS, which equal the
+    parent's where the kernel's code did not change."""
+    kernels = ("traverse_kernel", "items_kernel", "dense_items_kernel", "entries_kernel")
+    for fn in sorted(census):
+        kind = next((k for k in kernels if re.search(rf"\d{k}I", fn)), None)
+        if kind is None:
+            continue
+        if kind == "entries_kernel":
+            assert census[fn]["MUFU.RCP"] >= 1, f"{fn}: the reciprocals are gone"
+            log(card, f"SASS {fn}: FCHK {census[fn]['FCHK']}, MUFU.RCP "
+                      f"{census[fn]['MUFU.RCP']}, {sum(census[fn].values())} instructions, "
+                      f"sha256 {digest[fn]}")
+            continue
+        loop = slot_loop(card, listing, fn, fn, quiet=True)
+        ops = loop["opcodes_per_slot"]
+        assert ops.get("FCHK", 0) >= 1 and ops.get("MUFU", 0) >= 1, \
+            f"{fn}: the slot loop lost its exact division ({ops})"
+        log(card, f"SASS {fn}: slot loop {loop['instructions_per_slot']:.1f} instructions a "
+                  f"slot, FCHK {ops['FCHK']:.1f}, MUFU {ops['MUFU']:.1f}, FFMA "
+                  f"{ops.get('FFMA', 0):.1f}; {sum(census[fn].values())} instructions, sha256 "
+                  f"{digest[fn]}")
 
 
 def check_sass(census: dict) -> None:
@@ -1325,7 +1377,7 @@ def check_sass(census: dict) -> None:
         assert len(hits) == 1, f"no single SASS function for {kernel}<{v}>: {list(census)}"
         return hits[0]
 
-    leaf = [of("leaf_kernel", v) for v in range(5)]
+    leaf = [of("leaf_kernel", v) for v in range(7)]
     for v in (0, 1, 3):  # full, noselect, epilogue: the per-slot division
         assert leaf[v]["MUFU.RCP"] >= 1, f"U1 variant {v}: no division left"
     for v in (0, 1, 2):  # the record loads of the slot loop
@@ -1333,6 +1385,14 @@ def check_sass(census: dict) -> None:
     assert leaf[3]["SHFL"] >= 1, "U1 epilogue: the per-slot shuffle is gone"
     # fetch: the ray's own load, and the chain's load and float-to-int step
     assert leaf[4]["LDG"] >= 2 and leaf[4]["F2I"] >= 1, "U1 fetch: the chain is gone"
+    # fused, staged: the approximate reciprocal, no exact division, the
+    # multiply-adds, the record loads (staged: from shared memory, after
+    # the cp.async copies)
+    for v in (5, 6):
+        assert leaf[v]["MUFU.RCP"] >= 1 and leaf[v]["FCHK"] == 0, f"U1 {v}: not rcp.approx"
+        assert leaf[v]["FFMA"] >= 18, f"U1 variant {v}: the multiply-adds are gone"
+    assert leaf[5]["LDG"] >= 3, "U1 fused: no record loads left"
+    assert leaf[6]["LDS"] >= 3 and leaf[6]["LDGSTS"] >= 1, "U1 staged: no staged loads left"
     grid = [of("grid_kernel", v) for v in range(4)]
     assert grid[0]["MUFU.RCP"] == 0, "U2 trivial re-bases rays"
     for v in (1, 2, 3):  # set_obj's three reciprocals
@@ -1342,21 +1402,25 @@ def check_sass(census: dict) -> None:
 
 def phase9(card, dev, ps, k1_primaries):
     """The microbenchmarks U1 and U2: every variant of each kernel against
-    its plain version (U1 in one block and in a block per SM; U2 at 1 and
-    512 tiles), then the counted run of their entry points (launch
-    counters reset just before it, read just after), then the cost model
-    of K1 on the primaries that they give."""
+    its plain version (U1 in one block and in a block per SM, `fused`
+    under its tolerance; U2 at 1 and 512 tiles), then the counted run of
+    their entry points (launch counters reset just before it, read just
+    after), then the cost model of K1 on the primaries that they give."""
     from rfw_tpu_torch.tools import ubench_grid as ug
     from rfw_tpu_torch.tools import ubench_leaf as ul
 
-    census, listing = sass_census(card)
+    census, listing, digest = sass_census(card)
     check_sass(census)
-    loop = slot_loop(card, listing)
+    check_walk_sass(card, census, listing, digest)
+    loop = slot_loop(card, listing, "leaf_kernelILi0E", "U1 full")
+    loop_fused = slot_loop(card, listing, "leaf_kernelILi5E", "U1 fused")
+    loop_staged = slot_loop(card, listing, "leaf_kernelILi6E", "U1 staged")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tri, obj = ul.make_inputs()
     tris, obj = ul.to_records(torch.from_numpy(tri)).to(dev), torch.from_numpy(obj).to(dev)
     u1_err = 0.0
-    for variant in ul.VARIANTS:
+    fused = ("fused", "staged")  # the approximate reciprocal: by tolerance
+    for variant in (v for v in ul.VARIANTS if v not in fused):  # identical
         ref = ul.leaf_plain(tris, obj, variant, U1_CMP_ITERS)
         for copies in (1, sms):
             got = ul.leaf(tris, obj, variant, U1_CMP_ITERS, copies)
@@ -1373,6 +1437,27 @@ def phase9(card, dev, ps, k1_primaries):
     log(card, f"U1 full kernel vs plain, {U1_ITERS} iterations, one block: identical {same}, "
               f"plain {u1_plain_ms:.2f} ms")
     assert same, "U1 full: not identical to the plain version"
+    # fused, staged: the copies identical, aux identical, t within the tolerance
+    for variant, iters in ((v, i) for i in (U1_CMP_ITERS, U1_ITERS) for v in fused):
+        ref = ul.leaf_plain(tris, obj, variant, iters)
+        for copies in (1, sms):
+            got = ul.leaf(tris, obj, variant, iters, copies)
+            same_copies = torch.equal(got.t, got.t[:1].expand_as(got.t))
+            same_aux = torch.equal(got.aux, ref.aux.expand_as(got.aux))
+            rel = (got.t[0].double() - ref.t[0].double()).abs() / ref.t[0].double().abs()
+            beyond = int((rel > U1_FUSED_REL).sum())
+            err = (got.t[0] - ref.t[0]).abs().max().item()
+            u1_err = max(u1_err, err)
+            log(card, f"U1 {variant} kernel vs plain, {iters} iterations, {copies} copies: "
+                      f"copies identical {same_copies}, aux identical {same_aux}, "
+                      f"{beyond} of {ul.RAYS} rays beyond {U1_FUSED_REL:g} relative (at most "
+                      f"{U1_FUSED_LANES}), largest relative error {rel.max().item():.3e}, "
+                      f"bit-identical rays {int((got.t[0] == ref.t[0]).sum())}, max abs err "
+                      f"{err:.3e}")
+            tag = f"U1 {variant} ({iters} iterations, {copies} copies)"
+            assert same_copies, f"{tag}: copies differ"
+            assert same_aux, f"{tag}: aux differs"
+            assert beyond <= U1_FUSED_LANES, f"{tag}: {beyond} rays off the plain t"
 
     u2_err, u2_plain_ms = 0.0, None
     for tiles in (1, U2_TILES[-1]):
@@ -1405,20 +1490,23 @@ def phase9(card, dev, ps, k1_primaries):
     # issues WARP_ISSUE_PER_CLOCK warp instructions a clock
     mhz = float(clock.split(",")[0])
     slots = ul.RAYS * 64 * U1_ITERS
-    u1_ms = leaf1["ms_per_call"]["full"]
+    u1_bound_ms = ul.RAYS * 64 * FLOP_PER_TRI * U1_ITERS / (FP32_FLOP_PER_S / sms) * 1e3
 
     def issue_ms(per_slot):
         return slots * per_slot / 32 / (WARP_ISSUE_PER_CLOCK * mhz * 1e6) * 1e3
 
-    log(card, f"U1 full, one block: {u1_ms:.4f} ms for {slots} slot tests; issuing its SASS "
-              f"({loop['instructions_per_slot']:.1f} instructions a slot) at "
-              f"{WARP_ISSUE_PER_CLOCK} warp instructions a clock at {mhz:.0f} MHz takes "
-              f"{issue_ms(loop['instructions_per_slot']):.4f} ms "
-              f"({100 * issue_ms(loop['instructions_per_slot']) / u1_ms:.1f}% of the "
-              f"measured time), its fp32 instructions alone ({loop['fp32_per_slot']:.1f}) "
-              f"{issue_ms(loop['fp32_per_slot']):.4f} ms; the bound's {FLOP_PER_TRI} fp32 "
-              f"operations as {FLOP_PER_TRI // 2} multiply-adds {issue_ms(FLOP_PER_TRI / 2):.4f}"
-              f" ms")
+    for v, lp in (("full", loop), ("fused", loop_fused), ("staged", loop_staged)):
+        u1_ms = leaf1["ms_per_call"][v]
+        log(card, f"U1 {v}, one block: {u1_ms:.4f} ms for {slots} slot tests "
+                  f"({100 * u1_bound_ms / u1_ms:.1f}% of the {u1_bound_ms:.4f} ms bound); "
+                  f"issuing its SASS ({lp['instructions_per_slot']:.1f} instructions a slot) "
+                  f"at {WARP_ISSUE_PER_CLOCK} warp instructions a clock at {mhz:.0f} MHz takes "
+                  f"{issue_ms(lp['instructions_per_slot']):.4f} ms "
+                  f"({100 * issue_ms(lp['instructions_per_slot']) / u1_ms:.1f}% of the "
+                  f"measured time), its fp32 instructions alone ({lp['fp32_per_slot']:.1f}) "
+                  f"{issue_ms(lp['fp32_per_slot']):.4f} ms; the bound's {FLOP_PER_TRI} fp32 "
+                  f"operations as {FLOP_PER_TRI // 2} multiply-adds "
+                  f"{issue_ms(FLOP_PER_TRI / 2):.4f} ms")
     for v in ul.VARIANTS:
         log(card, f"U1 {v:9s}: {leaf1['us_per_iter'][v]:9.4f} us/iter in one block, "
                   f"{leafn['us_per_iter'][v]:9.4f} us/iter in {sms} blocks "
@@ -1434,6 +1522,7 @@ def phase9(card, dev, ps, k1_primaries):
     full_rays = U2_TILES[-1] * ug.TILE_RAYS
     top = res[str(U2_TILES[-1])]
     slot_us = leafn["us_per_iter"]["full"] / (sms * ul.RAYS * 64)
+    fused_us = leafn["us_per_iter"]["fused"] / (sms * ul.RAYS * 64)
     n = k1_primaries["rays"]
     shape_ms = top["init"]["launch_us"] / 1e3 * n / full_rays
     own = k1_primaries["kernel_counts"]
@@ -1448,11 +1537,20 @@ def phase9(card, dev, ps, k1_primaries):
                   f"{node_ms:.4f} ms ({c['boxes']} box tests at {FLOP_PER_BOX}/"
                   f"{FLOP_PER_TRI} of a slot test); remainder (fetch latency, divergence) "
                   f"{rest:.4f} ms ({100 * rest / k1_primaries['ms']:.1f}%)")
+    fused_ms = own["tris"] * fused_us / 1e3
+    log(card, f"K1 on the {n} primaries, leaf tests at U1 fused's ps a slot: {own['tris']} "
+              f"slot tests x {fused_us * 1e6:.3f} ps = {fused_ms:.4f} ms against "
+              f"{own['tris'] * slot_us / 1e3:.4f} ms at U1 full's {slot_us * 1e6:.3f} ps "
+              f"(the fused contract would save {own['tris'] * (slot_us - fused_us) / 1e3:.4f} "
+              f"ms of K1's {k1_primaries['ms']:.4f} ms, counted at U1's full occupancy)")
 
-    u1_ops = ul.RAYS * 64 * FLOP_PER_TRI * U1_ITERS
     u1 = dict(call=f"full, {U1_ITERS} iterations, one block", ms=leaf1["ms_per_call"]["full"],
-              plain_ms=u1_plain_ms, bound_ms=u1_ops / (FP32_FLOP_PER_S / sms) * 1e3,
-              bound_by="operations", max_abs_err=u1_err)
+              plain_ms=u1_plain_ms, bound_ms=u1_bound_ms, bound_by="operations",
+              max_abs_err=u1_err, fused_ms=leaf1["ms_per_call"]["fused"],
+              staged_ms=leaf1["ms_per_call"]["staged"],
+              instructions_per_slot=loop["instructions_per_slot"],
+              fused_instructions_per_slot=loop_fused["instructions_per_slot"],
+              staged_instructions_per_slot=loop_staged["instructions_per_slot"])
     u2 = dict(call=f"trivial, {U2_TILES[-1]} tiles", ms=top["trivial"]["launch_us"] / 1e3,
               plain_ms=u2_plain_ms, bound_ms=full_rays * (4 + 20) / HBM_BYTES_PER_S * 1e3,
               bound_by="bytes", max_abs_err=u2_err)
@@ -1795,7 +1893,8 @@ def main() -> int:
             heavy["launches"]["dense_closest"] + heavy["launches"]["dense_occluded"],
             heavy["K6"]),
         row("U1 ubench_leaf", "rfw_tpu_torch/csrc/ubench_leaf.cu", "tools/ubench_leaf.py:51",
-            ubench["launches"]["leaf"], ubench["U1"]),
+            ubench["launches"]["leaf"], ubench["U1"], fused_ms=ubench["U1"][0]["fused_ms"],
+            staged_ms=ubench["U1"][0]["staged_ms"]),
         row("U2 ubench_grid", "rfw_tpu_torch/csrc/ubench_grid.cu", "tools/ubench_grid.py:60",
             ubench["launches"]["grid"], ubench["U2"]),
     ]

@@ -31,7 +31,10 @@
 // the compiler never contracts into multiply-adds: every operation rounds
 // as in the plain torch walks (ops/traverse.py), in the same order, so the
 // kernels match them bit for bit on the same visits. t = -o'_w / d'_w is an
-// exact division.
+// exact division. `slot_hit_fused` is a second contract for the leaf test,
+// the reference tool's own arithmetic on the card's multiply-adds and
+// approximate reciprocal; only U1's `fused` (through leaf_test<A, true>)
+// and `staged` variants run it, and K1-K6 keep the exact one.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -160,6 +163,37 @@ __device__ __forceinline__ bool slot_hit(const float4& a, const float4& b, const
   return u >= -1e-7f && v >= -1e-7f && u + v <= 1.0000001f && t > kTMin && t < best;
 }
 
+// The same test in the reference tool's arithmetic (tools/ubench_leaf.py
+// :96-111, rfw_tpu/ops/traverse.py:542-546): o'_u/v/w as multiply-add
+// chains seeded with the record's .w, d'_u/v/w as one product and two
+// multiply-adds, t = -o'_w * rw where rw is rcp.approx.ftz(d'_w) refined by
+// one Newton step in two multiply-adds (r0 + r0*(1 - d'_w*r0) =
+// r0*(2 - d'_w*r0)), u and v one multiply-add each. Every operation is an
+// explicit fmaf or __fmul_rn/__fadd_rn, so the rounding is fixed and the
+// plain version (tools/ubench_leaf.py::leaf_plain "fused") can model it;
+// only the reciprocal (within 1 ulp of 1/d'_w before the Newton step)
+// differs. A degenerate slot still fails every compare: d'_w = 0 (or a
+// denormal, flushed) gives r0 = inf and 1 - d'_w*r0 = 1 - 0*inf = NaN, so
+// rw and t are NaN; a NaN d'_w or o'_w gives a NaN t too.
+__device__ __forceinline__ bool slot_hit_fused(const float4& a, const float4& b,
+                                               const float4& c, const Ray& r, float best,
+                                               float& t, float& u, float& v) {
+  const float opu = fmaf(a.z, r.oz, fmaf(a.y, r.oy, fmaf(a.x, r.ox, a.w)));
+  const float opv = fmaf(b.z, r.oz, fmaf(b.y, r.oy, fmaf(b.x, r.ox, b.w)));
+  const float opw = fmaf(c.z, r.oz, fmaf(c.y, r.oy, fmaf(c.x, r.ox, c.w)));
+  const float dpu = fmaf(a.z, r.dz, fmaf(a.y, r.dy, __fmul_rn(a.x, r.dx)));
+  const float dpv = fmaf(b.z, r.dz, fmaf(b.y, r.dy, __fmul_rn(b.x, r.dx)));
+  const float dpw = fmaf(c.z, r.dz, fmaf(c.y, r.dy, __fmul_rn(c.x, r.dx)));
+  float r0;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r0) : "f"(dpw));
+  const float rw = fmaf(r0, fmaf(-dpw, r0, 1.0f), r0);
+  t = __fmul_rn(-opw, rw);
+  u = fmaf(t, dpu, opu);
+  v = fmaf(t, dpv, opv);
+  return u >= -1e-7f && v >= -1e-7f && __fadd_rn(u, v) <= 1.0000001f && t > kTMin &&
+         t < best;
+}
+
 // Test the `count` (>= 1) Woop slots of the treelet starting at triangle
 // row `first` against the object-space ray. Closest hit: lowers `best` and
 // sets (win, bu, bv) on a strictly nearer hit (lowest slot among ties).
@@ -168,7 +202,8 @@ __device__ __forceinline__ bool slot_hit(const float4& a, const float4& b, const
 // a slot's fetch latency hides behind its predecessor's arithmetic; the
 // last slot reloads itself rather than read past `count`. The slots are
 // tested in the same order either way, so the winner does not change.
-template <bool kAnyHit>
+// kFused picks slot_hit_fused's contract over slot_hit's.
+template <bool kAnyHit, bool kFused = false>
 __device__ __forceinline__ bool leaf_test(const float4* __restrict__ tris, int first,
                                           int count, const Ray& r, float& best,
                                           float& bu, float& bv, int& win) {
@@ -179,7 +214,9 @@ __device__ __forceinline__ bool leaf_test(const float4* __restrict__ tris, int f
     const float4* nx = slot + 4 * min(j + 1, count - 1);
     const float4 na = __ldg(nx + 0), nb = __ldg(nx + 1), nc = __ldg(nx + 2);
     float t, u, v;
-    if (slot_hit(a, b, c, r, best, t, u, v)) {
+    const bool hit = kFused ? slot_hit_fused(a, b, c, r, best, t, u, v)
+                            : slot_hit(a, b, c, r, best, t, u, v);
+    if (hit) {
       if (kAnyHit) return true;
       best = t;
       bu = u;

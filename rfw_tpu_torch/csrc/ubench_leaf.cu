@@ -18,6 +18,13 @@
 //   fetch     a dependent chain: idx -> load record float 0 of treelet
 //             (idx % 64)*8 -> idx = (idx*1103515245 + 12345 + int(v*0)) %
 //             65521 (int32 wrap, floor modulo); t = t0 + 1
+//   fused     as full, but leaf_test<false, true>: the slot test in the
+//             reference tool's own arithmetic (slot_hit_fused: multiply-
+//             adds, rcp.approx refined by one Newton step)
+//   staged    fused's test in U1's own loop: the step's treelet (its 64
+//             slots' u, v, w rows, 3 KB) is copied to shared memory by
+//             cp.async while the block tests the previous one, and each
+//             slot reads three broadcast LDS.128; slots unrolled by 16
 // Every variant starts at t0 = |ox| * 100. aux gets the chain's last
 // index for `fetch` and the group g for the others, so the chain is an
 // output and nvcc cannot delete it.
@@ -26,12 +33,20 @@
 // design (the TPU tool's shape); `copies` independent blocks fill the card
 // and read the leaf test's throughput. The records (2 MB) are read through
 // the read-only cache and every thread of a warp reads the same slot, so a
-// slot costs one broadcast load per warp, not bandwidth. Rounding as in
-// the plain version (tools/ubench_leaf.py::leaf_plain): products and sums
-// by __fmul_rn/__fadd_rn, exact division. In `epilogue` each slot passes
-// d_w through __shfl_sync with the thread's own lane (an identity): without
-// it the 64 identical slot epilogues are loop-invariant and nvcc would
-// compute one.
+// slot costs one broadcast load per warp, not bandwidth; but each load
+// still writes 16 B to each of 32 lanes, 4 clocks of the SM's 128 B a
+// clock into registers, so 3 loads a slot for 32 warps hold each slot of a
+// step at 384 clocks or more whatever the arithmetic: that, not the
+// instruction count, bounds full, fused and staged (PERF.md).
+//
+// Rounding as in the plain version (tools/ubench_leaf.py::leaf_plain):
+// products and sums by __fmul_rn/__fadd_rn, exact division; in `fused`
+// and `staged` the multiply-adds of slot_hit_fused, which the plain
+// version rounds alike, and the approximate reciprocal, which it does not
+// (the one source of a difference, held by tolerance). In `epilogue` each
+// slot passes d_w through __shfl_sync with the thread's own lane (an
+// identity): without it the 64 identical slot epilogues are loop-invariant
+// and nvcc would compute one.
 
 #include "bvh_common.cuh"
 
@@ -42,7 +57,58 @@ using namespace rfw;
 constexpr int kRays = 1024;  // 8 x 128, one block
 constexpr int kGroups = 8;
 constexpr int kBlocks = 64;  // fetch blocks of 8 groups
-constexpr int kFull = 0, kNoSelect = 1, kMadds = 2, kEpilogue = 3, kFetch = 4;
+constexpr int kFull = 0, kNoSelect = 1, kMadds = 2, kEpilogue = 3, kFetch = 4, kFused = 5,
+              kStaged = 6;
+constexpr int kStagedUnroll = 16;  // slots a loop body: of 2, 8, 16 and 64 the fastest
+
+// First triangle row of the treelet that step j tests in record group g.
+__device__ __forceinline__ int step_first(int j, int g) {
+  return ((j * 7) % kBlocks * kGroups + g) * kTreelet;
+}
+
+// Copy the u, v, w rows of the 64 slots of the treelet at triangle row
+// `first` to buf (3 float4 a slot) by cp.async, one 16-byte row a thread,
+// as one commit group.
+__device__ __forceinline__ void stage(float4* buf, const float4* __restrict__ tris, int first) {
+  const int i = threadIdx.x;
+  if (i < 3 * kTreelet) {
+    const int slot = i / 3;
+    const float4* src = tris + 4 * (static_cast<size_t>(first) + slot) + (i - 3 * slot);
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(buf + i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// `staged`: `iters` steps of slot_hit_fused over the step's treelet read
+// from shared memory, double-buffered: step j waits for its own copy,
+// synchronises the block (so every thread is done with step j-1's buffer
+// too) and starts step j+1's copy into that buffer before it tests. The
+// slots are tested in order with leaf_test's best-slot rule. Returns t.
+__device__ __forceinline__ float staged_steps(const float4* __restrict__ tris, int g,
+                                              int iters, const Ray& r, float t) {
+  __shared__ float4 buf[2][3 * kTreelet];
+  if (iters > 0) stage(buf[0], tris, step_first(0, g));
+  for (int j = 0; j < iters; ++j) {
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    if (j + 1 < iters) stage(buf[(j + 1) & 1], tris, step_first(j + 1, g));
+    const float4* s = buf[j & 1];
+    float best = t, bu = 0.0f;
+    int win = -1;
+#pragma unroll kStagedUnroll
+    for (int k = 0; k < kTreelet; ++k) {
+      float tq, u, v;
+      if (slot_hit_fused(s[3 * k], s[3 * k + 1], s[3 * k + 2], r, best, tq, u, v)) {
+        best = tq;
+        bu = u;
+        win = k;
+      }
+    }
+    if (win >= 0) t = __fadd_rn(best, __fmul_rn(bu, 1e-30f));
+  }
+  return t;
+}
 
 // t_best / u_best / slot of a hit in the (T_MIN, t) window, as leaf_test.
 __device__ __forceinline__ void take(float tq, float u, float v, int j, float& best,
@@ -85,14 +151,17 @@ __global__ void __launch_bounds__(kRays) leaf_kernel(const float4* __restrict__ 
     }
     t = __fadd_rn(t, 1.0f);
     aux = idx;
+  } else if (kVariant == kStaged) {
+    t = staged_steps(tris, g, iters, r, t);
   } else {
     for (int j = 0; j < iters; ++j) {
-      const int gb = (j * 7) % kBlocks;
-      const int first = (gb * kGroups + (kVariant == kNoSelect ? 0 : g)) * kTreelet;
+      const int first = step_first(j, kVariant == kNoSelect ? 0 : g);
       float best = t, bu = 0.0f, bv = 0.0f;
       int win = -1;
       if (kVariant == kFull || kVariant == kNoSelect) {
         leaf_test<false>(tris, first, kTreelet, r, best, bu, bv, win);
+      } else if (kVariant == kFused) {
+        leaf_test<false, true>(tris, first, kTreelet, r, best, bu, bv, win);
       } else if (kVariant == kMadds) {
         const float4* slot = tris + 4 * static_cast<size_t>(first);
         float tmin = __int_as_float(0x7f800000);  // +inf
@@ -152,6 +221,8 @@ extern "C" int rfw_ubench_leaf(int variant, const void* tris, int n_rows, const 
     case kMadds: leaf_kernel<kMadds><<<grid, block, 0, s>>>(tr, ob, iters, ot, oa); break;
     case kEpilogue: leaf_kernel<kEpilogue><<<grid, block, 0, s>>>(tr, ob, iters, ot, oa); break;
     case kFetch: leaf_kernel<kFetch><<<grid, block, 0, s>>>(tr, ob, iters, ot, oa); break;
+    case kFused: leaf_kernel<kFused><<<grid, block, 0, s>>>(tr, ob, iters, ot, oa); break;
+    case kStaged: leaf_kernel<kStaged><<<grid, block, 0, s>>>(tr, ob, iters, ot, oa); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

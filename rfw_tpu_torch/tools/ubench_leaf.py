@@ -12,6 +12,18 @@ sequential steps, each a 64-slot leaf test over synthetic Woop records
   madds     the six products per slot and a min over slots, no epilogue
   epilogue  the division, compares and best-slot update, no products
   fetch     a dependent chain of `iters` loads, nothing else
+  fused     full's step with the slot test in the reference tool's own
+            arithmetic (`slot_hit_fused`: multiply-adds, an approximate
+            reciprocal refined by one Newton step), in K1's leaf loop
+  staged    fused's test in U1's own loop: each step's treelet staged in
+            shared memory while the block tests the previous one
+
+Every variant but `fused` and `staged` matches its plain version bit for
+bit on the card. Their plain version (one function for both) rounds each
+multiply-add once, as the card's FFMA does, but takes the correctly
+rounded 1/d'_w where the card's MUFU.RCP is within 1 ulp of it, so the
+kernels are held to it by a tolerance: t within 3e-5 relative on all but
+at most 4 of the 1,024 rays.
 
 Per-iteration cost is (time(2*iters) - time(iters)) / iters, the least
 over `--reps` timed calls of each; on the card each call is timed by CUDA
@@ -47,7 +59,7 @@ RAYS = SSUB * LANE
 TLANES = 16  # floats per record
 TGROUPS = LANE // TLANES  # record groups per fetch block
 N_BLOCKS = 64  # fetch blocks of the synthetic arena
-VARIANTS = ("full", "noselect", "madds", "epilogue", "fetch")
+VARIANTS = ("full", "noselect", "madds", "epilogue", "fetch", "fused", "staged")
 
 #: kernel launches; the wrapper adds one where it launches
 LAUNCHES = {"leaf": 0}
@@ -86,9 +98,43 @@ def _group(obj: torch.Tensor) -> torch.Tensor:
     return torch.remainder(t00.to(torch.int32), TGROUPS)
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+    """a*b + c rounded once to float32, as an FFMA rounds it: the product
+    of two float32 values is exact in float64, so only the float64 sum and
+    the cast round, which gives the FFMA's result but where the float64 sum
+    lands on a float32 tie that the exact sum is not (about 2^-29 of the
+    cases)."""
+    return (a.double() * b + c).float()
+
+
+def _fused_slots(a: torch.Tensor, obj, tcur: torch.Tensor):
+    """`csrc/bvh_common.cuh::slot_hit_fused` over the 64 slots of one
+    treelet's records a (64, 16) for n rays obj = (ox, oy, oz, dx, dy, dz)
+    (n,) each, hits limited to (T_MIN, tcur): (ok, t, u), each (n, 64).
+    The reference tool's step (`tools/ubench_leaf.py:96-111`) with the
+    kernel's multiply-adds; r0 = 1/d'_w stands in for its approximate
+    reciprocal."""
+    ox, oy, oz, dx, dy, dz = (x[:, None] for x in obj)
+
+    def tail(k, y, z, s):  # s + a_k+1 * y + a_k+2 * z, two multiply-adds
+        return _fma(a[:, k + 2], z, _fma(a[:, k + 1], y, s))
+
+    opu, opv, opw = (tail(k, oy, oz, _fma(a[:, k], ox, a[:, k + 3])) for k in (0, 4, 8))
+    dpu, dpv, dpw = (tail(k, dy, dz, a[:, k] * dx) for k in (0, 4, 8))
+    r0 = 1.0 / dpw  # d'_w = 0: inf, then 1 - 0*inf is NaN and so is t
+    rw = _fma(r0, _fma(-dpw, r0, 1.0), r0)
+    t = -opw * rw
+    u = _fma(t, dpu, opu)
+    v = _fma(t, dpv, opv)
+    ok = ((u >= -1e-7) & (v >= -1e-7) & (u + v <= 1 + 1e-7)
+          & (t > T_MIN) & (t < tcur[:, None]))
+    return ok, t, u
+
+
 def leaf_plain(tris: torch.Tensor, obj: torch.Tensor, variant: str, iters: int) -> LeafOut:
     """Plain torch U1 (any device), one copy: (1, 8, 128) outputs, each
-    operation rounded as the kernel rounds it."""
+    operation rounded as the kernel rounds it (`fused`, `staged`: but for
+    the reciprocal, see `_fused_slots`)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
     dev = tris.device
@@ -130,9 +176,12 @@ def leaf_plain(tris: torch.Tensor, obj: torch.Tensor, variant: str, iters: int) 
             ok = ((uq >= -1e-7) & (vq >= -1e-7) & (uq + vq <= 1 + 1e-7)
                   & (tq > T_MIN) & (tq < t))
             t = torch.where(ok, tq + uq * eps, t)
-        else:  # K1's own plain leaf test
-            first = torch.as_tensor(treelet * TREELET, device=dev).expand(RAYS)
-            ok, tq, uq, _ = _leaf_slots(tris, first, count, ray, t)
+        else:
+            if variant in ("fused", "staged"):
+                ok, tq, uq = _fused_slots(recs[treelet], ray, t)
+            else:  # K1's own plain leaf test
+                first = torch.as_tensor(treelet * TREELET, device=dev).expand(RAYS)
+                ok, tq, uq, _ = _leaf_slots(tris, first, count, ray, t)
             score = torch.where(ok, tq, inf)
             win = torch.argmin(score, dim=1, keepdim=True)  # lowest slot among ties
             tmin = score.gather(1, win)[:, 0]

@@ -22,7 +22,14 @@ Tolerances:
     divides exactly, and XLA fuses products and sums into multiply-adds,
     so t differs by a few ulps, and by more where the dot products cancel
     or a slot passes a bound test in one and not the other;
-  * the CUDA kernels against the plain versions (on a card): identical.
+  * U1 `fused` and `staged` (the port's own variants, the reference's
+    arithmetic on the card's multiply-adds) against the reference's
+    `full`: the same, and against a float64 evaluation of the step they
+    are no further off than `full` is;
+  * the CUDA kernels against the plain versions (on a card): identical,
+    but for `fused` and `staged` (t within 3e-5 relative on all but at
+    most 4 lanes: the plain version cannot round the card's MUFU.RCP
+    alike).
 """
 
 import json
@@ -47,6 +54,8 @@ from rfw_tpu_torch.tools import ubench_leaf as ul
 TOOLS = Path(__file__).resolve().parent.parent / "tools"
 LEAF_ITERS = (2, 4)  # the reference tool's --iters 2: it runs 2 and 4
 FLIP_LANES = 4
+REF_VARIANTS = ("full", "noselect", "madds", "epilogue", "fetch")  # the reference's, in order
+FUSED_VARIANTS = ("fused", "staged")  # the port's, held by tolerance
 
 
 def _run_tool(script: str, argv, bench=None):
@@ -81,12 +90,12 @@ def _run_tool(script: str, argv, bench=None):
 @pytest.fixture(scope="module")
 def leaf_ref():
     calls = _run_tool("ubench_leaf.py", ["--interpret", "--iters", "2", "--reps", "1"])
-    assert len(calls) == len(ul.VARIANTS) * len(LEAF_ITERS) * 2  # warm-up + 1 rep
+    assert len(calls) == len(REF_VARIANTS) * len(LEAF_ITERS) * 2  # warm-up + 1 rep
     tri, obj = ul.make_inputs()
     out = {}
     for i, (args, t) in enumerate(calls):
         v, k = divmod(i // 2, len(LEAF_ITERS))
-        out.setdefault((ul.VARIANTS[v], LEAF_ITERS[k]), []).append((args, t))
+        out.setdefault((REF_VARIANTS[v], LEAF_ITERS[k]), []).append((args, t))
     return dict(tri=tri, obj=obj, out=out)
 
 
@@ -120,7 +129,7 @@ def _chain(tri, iters):
 
 
 @pytest.mark.parametrize("iters", LEAF_ITERS)
-@pytest.mark.parametrize("variant", ul.VARIANTS)
+@pytest.mark.parametrize("variant", REF_VARIANTS)
 def test_leaf_plain_matches_reference(leaf_ref, variant, iters):
     recs, obj = _inputs(leaf_ref["tri"], leaf_ref["obj"])
     got = ul.leaf_plain(recs, obj, variant, iters)
@@ -148,16 +157,59 @@ def test_leaf_plain_matches_reference(leaf_ref, variant, iters):
     assert np.any(t != t0[None])
 
 
+def _outliers(t, ref):
+    """Lanes of t beyond 3e-5 relative of ref, and the largest relative error."""
+    rel = np.abs(np.asarray(t, np.float64) - ref) / np.abs(ref)
+    return int((rel > 3e-5).sum()), float(rel.max())
+
+
+@pytest.mark.parametrize("iters", LEAF_ITERS)
+@pytest.mark.parametrize("variant", FUSED_VARIANTS)
+def test_leaf_fused_plain_matches_reference(leaf_ref, variant, iters):
+    """`fused` and `staged` compute the reference's step with the card's
+    multiply-adds: within the tolerance of the reference's `full`, and no
+    further from a float64 evaluation of the step than the port's `full`
+    (exact division, each product and sum rounded alone) is."""
+    recs, obj = _inputs(leaf_ref["tri"], leaf_ref["obj"])
+    fused = ul.leaf_plain(recs, obj, variant, iters)
+    full = ul.leaf_plain(recs, obj, "full", iters)
+    ref = leaf_ref["out"][("full", iters)][0][1]
+    n, worst = _outliers(fused.t.numpy(), ref)
+    assert n <= FLIP_LANES, (n, worst)
+    assert torch.equal(fused.aux, full.aux)
+    t0 = np.abs(leaf_ref["obj"][0]) * np.float32(100.0)
+    assert np.any(fused.t.numpy() != t0[None])  # the steps hit
+    exact = ul.leaf_plain(recs.double(), obj.double(), "full", iters).t.numpy()
+    assert _outliers(fused.t.numpy(), exact)[0] <= _outliers(full.t.numpy(), exact)[0]
+
+
+def test_fused_degenerate_slots_never_pass():
+    """A slot whose d'_w is 0 or NaN, or whose record holds a NaN, fails
+    every compare in the fused contract, as in the exact one."""
+    a = torch.zeros((3, 16))
+    a[:, 0] = a[:, 5] = 0.25  # u = x/4, v = y/4 at the plane w = z
+    a[:, 10] = 1.0
+    a[1, 10] = float("nan")
+    a[2, 3] = float("nan")
+    ray = tuple(torch.tensor([v, v]) for v in (0.5, 0.5, -1.0, 0.0, 0.0, 1.0))
+    ok, t, u = ul._fused_slots(a, ray, torch.tensor([10.0, 10.0]))
+    assert ok.tolist() == [[True, False, False]] * 2 and t[0, 0] == 1.0
+    flat = tuple(torch.tensor([v, v]) for v in (0.5, 0.5, -1.0, 1.0, 0.0, 0.0))
+    ok, t, _ = ul._fused_slots(a, flat, torch.tensor([10.0, 10.0]))  # d'_w = 0
+    assert not ok.any() and torch.isnan(t).all()
+
+
 def test_leaf_copies_on_cpu(leaf_ref):
     recs, obj = _inputs(leaf_ref["tri"], leaf_ref["obj"])
-    one = ul.leaf_plain(recs, obj, "full", 3)
-    many = ul.leaf(recs, obj, "full", 3, copies=3)
-    assert many.t.shape == (3, 8, 128)
-    for k in range(3):
-        assert torch.equal(many.t[k], one.t[0]) and torch.equal(many.aux[k], one.aux[0])
+    for variant in ("full", *FUSED_VARIANTS):
+        one = ul.leaf_plain(recs, obj, variant, 3)
+        many = ul.leaf(recs, obj, variant, 3, copies=3)
+        assert many.t.shape == (3, 8, 128)
+        for k in range(3):
+            assert torch.equal(many.t[k], one.t[0]) and torch.equal(many.aux[k], one.aux[0])
 
 
-@pytest.mark.parametrize("variant", ul.VARIANTS)
+@pytest.mark.parametrize("variant", REF_VARIANTS)
 def test_leaf_kernel_matches_plain_on_card(leaf_ref, variant):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py phase 9 makes this check on the "
@@ -167,6 +219,20 @@ def test_leaf_kernel_matches_plain_on_card(leaf_ref, variant):
     got = ul.leaf(recs, obj, variant, 8, copies=4)
     for x, y in zip(got, ref):
         assert torch.equal(x, y.expand_as(x))
+
+
+@pytest.mark.parametrize("variant", FUSED_VARIANTS)
+def test_leaf_fused_kernel_matches_plain_on_card(leaf_ref, variant):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py phase 9 makes this check on the "
+                    "card")
+    recs, obj = _inputs(leaf_ref["tri"], leaf_ref["obj"], "cuda")
+    ref = ul.leaf_plain(recs, obj, variant, 8)
+    got = ul.leaf(recs, obj, variant, 8, copies=4)
+    assert torch.equal(got.t, got.t[:1].expand_as(got.t))
+    assert torch.equal(got.aux, ref.aux.expand_as(got.aux))
+    n, worst = _outliers(got.t[0].cpu().numpy(), ref.t[0].cpu().numpy())
+    assert n <= FLIP_LANES, (n, worst)
 
 
 # ------------------------------------------------------------------- U2
