@@ -10,7 +10,8 @@ instances, textured floor, area + spot + sun lights; made from a seed),
 with two_phase="off" (every ray through the classic kernel) and with the
 default two_phase="auto" (bounce rays through the two-phase path), and on
 an instance-heavy scene of 10,000 instances; then drives the same scene
-through the backend a user calls, `TorchBackend`.
+through the backend a user calls, `TorchBackend`, and through the app
+layer a user writes, `Instance` and `Scene`.
 
 Phases (any failed check raises, so the script exits nonzero):
   1. set-up: needs CUDA; builds the CUDA kernels from rfw_tpu_torch/csrc,
@@ -102,7 +103,25 @@ Phases (any failed check raises, so the script exits nonzero):
      the card agrees with the CPU on the same accumulator (99.9% of
      pixels within 1); then 4 progressive frames (ms, Mrays/s), a motion
      sync of the 256 sphere instances against a full repack (the same
-     arenas either way), a NORMAL frame and a frame with a quad2d overlay.
+     arenas either way), a NORMAL frame and a frame with a quad2d overlay;
+ 11. the app on the card, as a user writes it: (a) the flagship scene
+     authored through Instance(TorchBackend(1920, 1080), ...) and
+     app.scene (add_texture, add_material, add_3d_object,
+     add_3d_instance, the spot and sun lights; the area lights come from
+     the emissive material), 5 frames by run_windowed(HeadlessWindow):
+     the first Scene.synchronize packs build_scene's arenas field for
+     field and its lights (directions normalized), the first frame
+     launches K1, K2 and K3 (counters reset just before it, read at its
+     present); each frame's ms, render ms and Mrays/s and
+     Scene.synchronize's own host ms; (b) a SphereWorld system moving 64
+     sphere instances by InstanceHandle3D.set_trs, 5 frames: one motion
+     sync a frame (repack_instances, no full repack, no geometry upload),
+     and the last frame's arenas equal a full repack of the same state;
+     (c) Scene.load of an OBJ/MTL and of a 2-joint skinned glTF written
+     here, at two animation times NORMAL, ALBEDO and GBUFFER frames at
+     96x72 and 480x270 from TorchBackend on the card and from
+     CpuReferenceBackend, each synced in full: RMSE at most 1e-3 per mode,
+     and the two times give different frames.
 The tests that need a card (tests/test_torch_*.py, `*_on_card`) cannot run
 where the card is (their conftest imports jax); these phases make their
 checks (.claude/skills/verify/SKILL.md maps each test to its phase).
@@ -120,7 +139,8 @@ operations by whichever of the kernel's walk and the plain walk made
 fewer, the plain walk's alone in bound_ms_plain_counts; K6's by its own
 counts and by the plain version's likewise) and which of the two bounds
 it; no single PyTorch call computes a BVH traversal or either
-microbenchmark, so library_ms is null. The last line is
+microbenchmark, so library_ms is null; launches_app is its launches in
+phase 11's first frame. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -1712,6 +1732,337 @@ def phase10(card, dev, parts, scene_np, lights_np, camera):
     assert 0.05 < changed < 0.2, f"overlay covers {changed} of the frame"
     log(card, f"phase 10: {time.perf_counter() - t_phase:.2f} s")
 
+# build_scene's spot cones (inner, outer) in degrees
+SPOT_CONES = (25.0, 40.0)
+APP_FRAMES = 5
+PHYSICS_FRAMES = 5
+PHYSICS_BODIES = 64
+ORACLE_SIZES = ((96, 72), (480, 270))
+ORACLE_TIMES = (0.2, 0.9)
+ORACLE_RMSE = 1e-3  # tests/test_reference_backend.py's bar for the AOV modes
+# tests/test_golden_configs.py's OBJ scene
+OBJ_SRC = (
+    "mtllib gold.mtl\n"
+    "v -1 0 -1\nv 1 0 -1\nv 1 0 1\nv -1 0 1\n"
+    "v -0.4 0 -0.4\nv 0.4 0 -0.4\nv 0 1.0 0\n"
+    "vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\n"
+    "vn 0 1 0\n"
+    "usemtl floor\n"
+    "f 1/1/1 3/3/1 2/2/1\nf 1/1/1 4/4/1 3/3/1\n"
+    "usemtl pyramid\n"
+    "f 5/1 6/2 7/3\n"
+)
+MTL_SRC = (
+    "newmtl floor\nKd 0.6 0.62 0.65\nNs 40\n"
+    "\nnewmtl pyramid\nKd 0.8 0.25 0.2\nNs 160\n"
+)
+
+
+def skinned_gltf() -> dict:
+    """A small skinned glTF: a ribbon of 8 triangles (x in [-0.5, 0.5],
+    y in [0, 2]) weighted between two joints (the tip joint at y = 1), one
+    LINEAR animation turning the tip joint 60 degrees about z over one
+    second; one embedded base64 buffer, no image."""
+    import base64
+
+    f32 = np.float32
+    pos = np.array([[x, y, 0] for y in np.linspace(0, 2, 5) for x in (-0.5, 0.5)], f32)
+    w1 = np.clip(pos[:, 1] - 0.5, 0, 1)
+    parts = [
+        ("VEC3", 5126, pos),
+        ("VEC3", 5126, np.tile(np.array([0, 0, 1], f32), (10, 1))),
+        ("VEC4", 5121, np.tile(np.array([0, 1, 0, 0], np.uint8), (10, 1))),
+        ("VEC4", 5126, np.stack([1 - w1, w1, 0 * w1, 0 * w1], -1).astype(f32)),
+        ("SCALAR", 5123, np.array([[2 * i, 2 * i + 1, 2 * i + 3, 2 * i, 2 * i + 3, 2 * i + 2]
+                                   for i in range(4)], np.uint16).reshape(-1)),
+        # inverse bind matrices, column-major: the identity and a move by -1 in y
+        ("MAT4", 5126, np.stack([np.eye(4, dtype=f32),
+                                 np.array([[1, 0, 0, 0], [0, 1, 0, -1], [0, 0, 1, 0],
+                                           [0, 0, 0, 1]], f32)]).transpose(0, 2, 1)
+         .reshape(2, 16)),
+        ("SCALAR", 5126, np.array([0.0, 1.0], f32)),
+        ("VEC4", 5126, np.array([[0, 0, 0, 1], [0, 0, np.sin(np.pi / 6), np.cos(np.pi / 6)]],
+                                f32)),
+    ]
+    buf, views, accessors = b"", [], []
+    for type_, ctype, arr in parts:
+        raw = np.ascontiguousarray(arr).tobytes()
+        views.append({"buffer": 0, "byteOffset": len(buf), "byteLength": len(raw)})
+        accessors.append({"bufferView": len(views) - 1, "componentType": ctype,
+                          "count": len(arr), "type": type_})
+        buf += raw + b"\0" * (-len(raw) % 4)
+    return {
+        "asset": {"version": "2.0"},
+        "buffers": [{"uri": "data:application/octet-stream;base64,"
+                            + base64.b64encode(buf).decode(), "byteLength": len(buf)}],
+        "bufferViews": views, "accessors": accessors,
+        "materials": [{"name": "ribbon", "pbrMetallicRoughness": {
+            "baseColorFactor": [0.9, 0.5, 0.2, 1], "metallicFactor": 0.0}}],
+        "meshes": [{"name": "ribbon", "primitives": [{
+            "attributes": {"POSITION": 0, "NORMAL": 1, "JOINTS_0": 2, "WEIGHTS_0": 3},
+            "indices": 4, "material": 0}]}],
+        "skins": [{"joints": [0, 1], "inverseBindMatrices": 5}],
+        "nodes": [{"name": "root", "children": [1]},
+                  {"name": "tip", "translation": [0, 1, 0]},
+                  {"name": "ribbon", "mesh": 0, "skin": 0}],
+        "animations": [{"samplers": [{"input": 6, "output": 7, "interpolation": "LINEAR"}],
+                        "channels": [{"sampler": 0,
+                                      "target": {"node": 1, "path": "rotation"}}]}],
+        "scenes": [{"nodes": [0, 2]}], "scene": 0,
+    }
+
+
+def sync_full(scene, backend) -> None:
+    """Re-trigger every change feed of `scene`, then drain it into
+    `backend` (the pump is consuming, so a second backend needs a full
+    re-trigger; tests/test_reference_backend.py::sync_full)."""
+    scene.meshes_3d.trigger_changed_all()
+    scene.meshes_2d.trigger_changed_all()
+    for il in scene.instances_2d.values():
+        il.changed[il.active] = True
+        il.any_changed = bool(il.active.any())
+    scene.materials.materials.trigger_changed_all()
+    scene.materials.textures.trigger_changed_all()
+    scene._instances_changed = True
+    scene.lights.point.trigger_changed_all()
+    scene.lights.spot.trigger_changed_all()
+    scene.lights.directional.trigger_changed_all()
+    scene.lights.area_changed = True
+    scene.skybox.trigger_changed()
+    scene.skins.trigger_changed_all()
+    scene.synchronize(backend)
+
+
+def clocked_window(backend, n_frames: int, on_first=None):
+    """A HeadlessWindow of W x H that scripts `n_frames` empty polls and
+    keeps, per presented frame, its wall milliseconds (from the poll that
+    began it to its present) and `backend`'s render ms and Mrays/s;
+    `on_first()` runs at the first present."""
+    from rfw_tpu_torch.app.window import HeadlessWindow
+
+    class ClockedWindow(HeadlessWindow):
+        def __init__(self):
+            super().__init__(W, H, script=[[] for _ in range(n_frames)])
+            self.frames = []
+            self._t0 = None
+
+        def poll_events(self):
+            self._t0 = time.perf_counter()
+            return super().poll_events()
+
+        def present(self, frame):
+            super().present(frame)
+            self.frames.append(((time.perf_counter() - self._t0) * 1e3,
+                                backend.stats["render_ms"].last(),
+                                backend.stats["mrays_per_s"].last()))
+            if self.presented == 1 and on_first is not None:
+                on_first()
+
+    return ClockedWindow()
+
+
+def phase11(card, dev, parts, scene_np, camera) -> dict:
+    """The app on the card: the flagship scene authored through the port's
+    Instance and Scene and run through run_windowed; a physics system; the
+    loaders, skinning and the numpy oracle. Returns the first frame's
+    launches."""
+    from rfw_tpu_torch.app import Instance
+    from rfw_tpu_torch.backend.contract import RenderMode
+    from rfw_tpu_torch.backend.lights import PointLightsView
+    from rfw_tpu_torch.mathx import compose_trs, normalize, quat_identity
+    from rfw_tpu_torch.render.cpu_reference import CpuReferenceBackend
+    from rfw_tpu_torch.render.lights_pack import pack_lights
+    from rfw_tpu_torch.render.torch_backend import TorchBackend, TorchSettings
+    from rfw_tpu_torch.scene import Camera3D, Scene
+    from rfw_tpu_torch.utils.physics import SphereWorld
+
+    t_phase = time.perf_counter()
+    # ---- (a) the flagship scene through Instance and Scene
+    settings = TorchSettings(samples_per_frame=1, max_bounces=BOUNCES, clamp=20.0,
+                             sky_intensity=0.35, sampler="sobol")
+    be = TorchBackend(W, H, settings)
+    assert be.device.type == "cuda", be.device
+    app = Instance(be, W, H)
+    scene = app.scene
+    mats = parts["materials"]
+    for i, tex in mats.textures:
+        if i > 0:  # slot 0: each store's own default texture
+            assert scene.add_texture(tex) == i
+    for i, mat in mats.materials:
+        if i > 0:
+            assert scene.add_material(dataclasses.replace(mat)) == i
+    handles = {}
+    for slot, mesh, _ in parts["meshes"]:
+        assert scene.add_3d_object(mesh) == slot
+    for slot, matrices in parts["instances"]:
+        handles[slot] = [scene.add_3d_instance(slot, m) for m in matrices]
+    spot, sun = parts["spot"], parts["sun"]
+    for i in range(spot.count):
+        scene.add_spot_light(spot.position[i], spot.direction[i], spot.energy[i], *SPOT_CONES)
+    for i in range(sun.count):
+        scene.add_directional_light(sun.direction[i], sun.energy[i])
+    app.world.insert(camera)
+
+    syncs = []  # per Scene.synchronize: (its ms in all, the backend's own)
+    first = {}
+    scene_sync = scene.synchronize
+
+    def timed_sync(backend):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene_sync(backend)
+        torch.cuda.synchronize()
+        syncs.append(((time.perf_counter() - t0) * 1e3, be.stats["sync_ms"].last()))
+        if not first:
+            first.update(host=be._scene_host, lights=be._pack_lights())
+
+    scene.synchronize = timed_sync  # what Instance's synchronize system calls
+    launches = {}
+    win = clocked_window(be, APP_FRAMES, lambda: launches.update(read_launches()))
+    torch.cuda.synchronize()
+    reset_launches()
+    n = app.run_windowed(win, max_frames=APP_FRAMES)
+    assert n == win.presented == APP_FRAMES, (n, win.presented)
+    for f in scene_np._fields:
+        a, b = getattr(scene_np, f), getattr(first["host"], f)
+        assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), \
+            f"Scene.synchronize's first pack differs from build_scene's in {f}"
+    # Scene normalizes light directions; build_scene hands its views over as
+    # they are: the same lights with the directions normalized
+    want = pack_lights(PointLightsView.empty(),
+                       dataclasses.replace(spot, direction=normalize(spot.direction)),
+                       dataclasses.replace(sun, direction=normalize(sun.direction)),
+                       parts["area"])
+    for f in want._fields:
+        assert np.array_equal(getattr(want, f), getattr(first["lights"], f)), \
+            f"Scene.synchronize's first lights differ in {f}"
+    log(card, f"phase 11 (a): Instance(TorchBackend({W}, {H})) on {be.device}, the flagship "
+              f"scene authored through app.scene; the first Scene.synchronize packs "
+              f"build_scene's arenas in all {len(scene_np._fields)} TraceScene fields and its "
+              f"lights (directions normalized); first synchronize {syncs[0][0]:.2f} ms in all, "
+              f"{syncs[0][1]:.2f} ms of it in TorchBackend.synchronize (BLAS builds, pack, "
+              f"upload), Scene.synchronize's own host work {syncs[0][0] - syncs[0][1]:.2f} ms")
+    log(card, f"first frame through run_windowed: launches {launches}")
+    for k in ("closest", "occluded", "items_closest"):
+        assert launches[k] > 0, f"the app's first frame never launched {k}"
+    frame = win.last_frame
+    assert frame.shape == (H, W, 4) and frame.dtype == np.uint8 and frame[..., :3].std() > 1.0
+    for i, (ms, render_ms, mrays) in enumerate(win.frames):
+        log(card, f"app frame {i}: {ms:.2f} ms in all (poll to present), render "
+                  f"{render_ms:.2f} ms, {mrays:.3f} Mrays/s; Scene.synchronize "
+                  f"{syncs[i][0]:.3f} ms, its own host work {syncs[i][0] - syncs[i][1]:.3f} ms")
+    steady = [f[0] for f in win.frames[1:]]
+    log(card, f"app frames 1-{APP_FRAMES - 1}: {np.mean(steady):.2f} ms mean, "
+              f"{min(steady):.2f}-{max(steady):.2f} ms; Scene.synchronize's own host work "
+              f"{np.mean([a - b for a, b in syncs[1:]]):.3f} ms mean, "
+              f"{np.mean([a - b for a, b in syncs[1:]]) / np.mean(steady):.5f} of a frame")
+
+    # ---- (b) a physics system: SphereWorld drives 64 sphere instances
+    world = SphereWorld.new()
+    bodies = handles[0][:PHYSICS_BODIES]
+    radii = []
+    for h in bodies:
+        m = h.get_matrix()
+        radii.append(float(m[0, 0]))
+        world.add_sphere(m[:3, 3] + np.array([0, 2.0, 0], np.float32), radius=radii[-1])
+    start = np.stack([h.get_matrix() for h in bodies])
+
+    def physics(w):
+        world.step(1.0 / 30.0)
+        for i, h in enumerate(bodies):
+            h.set_trs(world.positions[i], (0, 0, 0, 1), (radii[i],) * 3)
+        scene._instances_changed = True  # handle edits do not raise the scene's flag
+
+    routes = Counter()
+    for name in ("_sync_instances", "_rebuild_scene"):
+        def counted(*a, _fn=getattr(be, name), _name=name, **k):
+            routes[_name] += 1
+            return _fn(*a, **k)
+        setattr(be, name, counted)
+    geo = be._scene_dev.tri_v0
+    app.with_system(physics)
+    syncs.clear()
+    pwin = clocked_window(be, PHYSICS_FRAMES)
+    assert app.run_windowed(pwin, max_frames=PHYSICS_FRAMES) == PHYSICS_FRAMES
+    taken = dict(routes)
+    assert routes == Counter(_sync_instances=PHYSICS_FRAMES), \
+        f"the physics frames took the routes {taken}, not one motion sync each"
+    assert be._scene_dev.tri_v0 is geo, "a physics frame re-uploaded geometry"
+    moved = np.abs(np.stack([h.get_matrix() for h in bodies]) - start).max()
+    assert moved > 0.1, f"the bodies moved only {moved}"
+    after = be._scene_host
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    be._rebuild_scene()
+    torch.cuda.synchronize()
+    full_ms = (time.perf_counter() - t0) * 1e3
+    for f in after._fields:
+        assert np.array_equal(getattr(after, f), getattr(be._scene_host, f)), \
+            f"the physics frames' arenas and a full repack differ in {f}"
+    for i, (ms, render_ms, mrays) in enumerate(pwin.frames):
+        log(card, f"physics frame {i}: {ms:.2f} ms in all, Scene.synchronize "
+                  f"{syncs[i][0]:.2f} ms ({syncs[i][1]:.2f} ms of it TorchBackend.synchronize: "
+                  f"a motion sync of {PHYSICS_BODIES} bodies, repack_instances), render "
+                  f"{render_ms:.2f} ms, {mrays:.3f} Mrays/s")
+    log(card, f"phase 11 (b): {PHYSICS_FRAMES} physics frames, "
+              f"{np.mean([f[0] for f in pwin.frames]):.2f} ms "
+              f"mean; one motion sync a frame (routes {taken}); the last frame's arenas "
+              f"equal a full repack of the same state ({full_ms:.2f} ms, BLAS cached); the "
+              f"bodies moved up to {moved:.3f}")
+
+    # ---- (c) the loaders, skinning and the numpy oracle
+    import tempfile
+
+    small = Scene()
+    aov = TorchSettings(samples_per_frame=1, max_bounces=0, pixel_center=True)
+    with tempfile.TemporaryDirectory() as d:
+        Path(d, "gold.mtl").write_text(MTL_SRC)
+        Path(d, "gold.obj").write_text(OBJ_SRC)
+        Path(d, "ribbon.gltf").write_text(json.dumps(skinned_gltf()))
+        obj = small.add_3d(small.load(str(Path(d, "gold.obj"))))
+        small.add_3d_instance(obj, compose_trs(np.array([3.2, 0, 0.3], np.float32),
+                                               quat_identity(), np.ones(3, np.float32)))
+        ribbon = small.add_3d(small.load(str(Path(d, "ribbon.gltf"))))
+    small.add_directional_light((0.3, -1, -0.4), (2.0, 1.9, 1.8))
+    cam = Camera3D(fov=50).look_at(np.array([1.4, 2.0, 5.2], np.float32),
+                                   np.array([1.2, 0.6, 0.0], np.float32))
+    modes = (RenderMode.NORMAL, RenderMode.ALBEDO, RenderMode.GBUFFER)
+    backends = {wh: (TorchBackend(*wh, aov), CpuReferenceBackend(*wh, aov)) for wh in ORACLE_SIZES}
+    frames = {}
+    for t in ORACLE_TIMES:
+        small.set_animations_time(t)
+        for (w, h), (card_be, oracle) in backends.items():
+            sync_full(small, card_be)
+            sync_full(small, oracle)
+            view = cam.get_view(w, h)
+            for mode in modes:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = card_be.render(None, view, mode)
+                card_ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                ref = oracle.render(None, view, mode)
+                oracle_ms = (time.perf_counter() - t0) * 1e3
+                e = float(np.sqrt(np.mean((got[..., :3].astype(np.float32) / 255.0
+                                           - ref[..., :3].astype(np.float32) / 255.0) ** 2)))
+                log(card, f"oracle t={t} {w}x{h} {mode.name}: RMSE {e:.6f} (bar "
+                          f"{ORACLE_RMSE}), {(got != ref).any(-1).mean():.6f} of pixels differ; "
+                          f"card {card_ms:.2f} ms, CpuReferenceBackend {oracle_ms:.2f} ms")
+                assert got.shape == ref.shape == (h, w, 4)
+                assert e <= ORACLE_RMSE, f"{mode.name} {w}x{h} t={t}: RMSE {e} against the oracle"
+                frames[t, w, mode] = got
+    for (w, h) in ORACLE_SIZES:
+        for mode in modes:
+            differ = (frames[ORACLE_TIMES[0], w, mode] != frames[ORACLE_TIMES[1], w, mode]).any(-1)
+            assert differ.any(), f"{mode.name} {w}x{h}: the two animation times give one frame"
+        log(card, f"{w}x{h}: the animation times {ORACLE_TIMES} differ on "
+                  f"{differ.mean():.4f} of the GBUFFER frame's pixels")
+    jm = ribbon.graph.skins[0].joint_matrices
+    assert np.isfinite(jm).all() and jm.shape == (2, 4, 4)
+    log(card, f"phase 11: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -1855,6 +2206,9 @@ def main() -> int:
     # ---- 10. the backend on the card
     phase10(card, dev, parts, scene_np, lights_np, camera)
 
+    # ---- 11. the app on the card: Instance, Scene, run_windowed
+    app_launches = phase11(card, dev, parts, scene_np, camera)
+
     def row(name, source, replaces, launches, rows, extra_err=(), **extra):
         b = max(rows, key=lambda r: r["bound_ms"]) if rows else None
         if rows and all("bound_ms_plain_counts" in r for r in rows):  # the walks K1-K5
@@ -1898,6 +2252,12 @@ def main() -> int:
         row("U2 ubench_grid", "rfw_tpu_torch/csrc/ubench_grid.cu", "tools/ubench_grid.py:60",
             ubench["launches"]["grid"], ubench["U2"]),
     ]
+    # each kernel's launches in phase 11's counted run, the app's first frame
+    app_kinds = {"K1": ("closest",), "K2": ("occluded",), "K3": ("items_closest",),
+                 "K5": ("items_occluded",), "K4": ("entries",),
+                 "K6": ("dense_closest", "dense_occluded"), "U1": ("leaf",), "U2": ("grid",)}
+    for k in kernels:
+        k["launches_app"] = sum(app_launches[kind] for kind in app_kinds[k["name"].split()[0]])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

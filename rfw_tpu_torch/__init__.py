@@ -2,13 +2,35 @@
 
 A second package beside `rfw_tpu` (the JAX/TPU reference, left unchanged).
 It imports torch and numpy, never jax and nothing from `rfw_tpu`: the host
-modules the renderer needs (scene building, BVH build, packing) are numpy
-copies here, kept bit-identical to the originals. Module paths mirror
-`rfw_tpu`:
+modules (the app and scene layer, the loaders, BVH build, packing, the
+numpy oracle) are numpy copies here, kept bit-identical to the originals.
+Module paths mirror `rfw_tpu`, and so do the names exported here, so a
+program written against `rfw_tpu` runs on the port with `rfw_tpu_torch` in
+its imports and `TorchBackend` in place of `TpuBackend`:
 
-  scene/, models/ (mesh3d, mesh2d,            host scene authoring (numpy):
-      primitives), mathx/, utils/ (log,         meshes with their backend
-      timing, collections)                      views, the 2D quad
+  app/ (instance, window, ecs, events,        the app runtime: Instance with
+      input, timer)                             its frame loop and
+                                                run_windowed, the window
+                                                providers (HeadlessWindow,
+                                                BrowserWindow), the winit
+                                                mirror and InputBundle
+  font/plugin.py                              text -> 2D mesh plugin (PIL,
+                                                imported when a glyph is
+                                                drawn)
+  scene/ (scene, graph, instances,            host scene authoring (numpy):
+      descriptor, materials, camera,            Scene and its synchronize
+      lights, serialize), loaders/              delta pump, the node graph
+      (obj, gltf), models/ (mesh3d,             with skins and animations,
+      mesh2d, primitives), mathx/,              instance pools, materials
+      utils/ (collections, track, task,         and textures, cameras,
+      physics, log, timing)                     lights, snapshots, the OBJ
+                                                and glTF loaders, meshes,
+                                                the sphere physics world
+  render/cpu_reference.py                     CpuReferenceBackend: the numpy
+                                                pixel oracle with the same
+                                                14-method contract (CPU
+                                                only, independent of the
+                                                code under test)
   backend/structs.py, backend/lights.py       the views crossing the backend
                                                 boundary
   backend/contract.py                         the Backend protocol (14
@@ -59,3 +81,53 @@ Importing builds nothing: the CUDA kernels compile at first use
 """
 
 __version__ = "0.1.0"
+
+import os as _os
+
+from rfw_tpu_torch.utils import log as _log
+
+if "RFW_LOG" in _os.environ:
+    _log.init()
+
+from rfw_tpu_torch.utils.collections import FlaggedStorage, TrackedStorage
+from rfw_tpu_torch.utils.timing import Timer, Averager
+from rfw_tpu_torch.app.ecs import Scheduler, Stage
+from rfw_tpu_torch.app.events import Events
+from rfw_tpu_torch.app.input import Input
+from rfw_tpu_torch.app.timer import GameTimer
+from rfw_tpu_torch.app.instance import Instance, Plugin, RenderSystem
+from rfw_tpu_torch.app.window import (
+    BrowserWindow,
+    DeviceEvent,
+    DeviceEvents,
+    ElementState,
+    HeadlessWindow,
+    InputBundle,
+    KeyState,
+    MouseButton,
+    MouseState,
+    ResizeEvent,
+    ResizeEvents,
+    VirtualKeyCode,
+    WindowData,
+    WindowEvent,
+    WindowEvents,
+    WindowHandle,
+)
+from rfw_tpu_torch.scene.materials import Material, Materials, Texture
+from rfw_tpu_torch.scene.descriptor import (
+    MeshDescriptor,
+    NodeDescriptor,
+    SceneDescriptor,
+    SkinDescriptor,
+)
+from rfw_tpu_torch.scene.camera import Camera2D, Camera3D, Frustum, FrustumResult
+from rfw_tpu_torch.scene.lights import DirectionalLight, Lights, PointLight, SpotLight
+from rfw_tpu_torch.scene.instances import (
+    InstanceHandle2D,
+    InstanceHandle3D,
+    InstanceList2D,
+    InstanceList3D,
+)
+from rfw_tpu_torch.scene.graph import Animation, GraphHandle, NodeGraph, SceneGraph, Skin
+from rfw_tpu_torch.scene.scene import Scene, SceneError

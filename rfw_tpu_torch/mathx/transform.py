@@ -1,8 +1,12 @@
 """Batch-first transform & quaternion math (numpy, float32).
 
-Host-side copy of `rfw_tpu/mathx/transform.py`, reduced to what the
-renderer's scene building needs. Matrices are row-major ``(..., 4, 4)``
-float32 acting on column vectors (``p' = M @ p``).
+Matrices are row-major ``(..., 4, 4)`` float32 acting on column vectors
+(``p' = M @ p``), matching glam's math as used by the reference scene graph
+(crates/rfw-scene/src/graph/mod.rs:540-630 matrix propagation).
+
+Host copy of `rfw_tpu/mathx/transform.py`: the same numpy code with its imports
+rewritten to `rfw_tpu_torch`, so that it computes what the original
+computes, bit for bit.
 """
 
 from __future__ import annotations
@@ -21,10 +25,48 @@ def normalize(v: np.ndarray, eps: float = 1e-12) -> np.ndarray:
     return v / np.maximum(n, eps)
 
 
+# ---------------------------------------------------------------- quaternions
 def quat_identity(shape: tuple = ()) -> np.ndarray:
     q = np.zeros(shape + (4,), dtype=np.float32)
     q[..., 3] = 1.0  # (x, y, z, w) — glTF convention
     return q
+
+
+def quat_normalize(q: np.ndarray) -> np.ndarray:
+    return normalize(q)
+
+
+def quat_mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    ax, ay, az, aw = (a[..., i] for i in range(4))
+    bx, by, bz, bw = (b[..., i] for i in range(4))
+    return np.stack(
+        [
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+            aw * bw - ax * bx - ay * by - az * bz,
+        ],
+        axis=-1,
+    ).astype(np.float32)
+
+
+def quat_slerp(a: np.ndarray, b: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """Batched spherical lerp; `t` broadcasts over leading axes.
+
+    Used by animation channel sampling (reference gltf rotation channels)."""
+    a = quat_normalize(a)
+    b = quat_normalize(b)
+    d = np.sum(a * b, axis=-1, keepdims=True)
+    b = np.where(d < 0.0, -b, b)
+    d = np.abs(d)
+    t = np.asarray(t, dtype=np.float32)[..., None]
+    # For nearly-parallel quats fall back to nlerp.
+    theta = np.arccos(np.clip(d, -1.0, 1.0))
+    sin_theta = np.sin(theta)
+    near = sin_theta < 1e-5
+    w_a = np.where(near, 1.0 - t, np.sin((1.0 - t) * theta) / np.where(near, 1.0, sin_theta))
+    w_b = np.where(near, t, np.sin(t * theta) / np.where(near, 1.0, sin_theta))
+    return quat_normalize(w_a * a + w_b * b)
 
 
 def quat_to_mat3(q: np.ndarray) -> np.ndarray:
@@ -46,7 +88,8 @@ def quat_to_mat3(q: np.ndarray) -> np.ndarray:
 
 
 def compose_trs(t: np.ndarray, r: np.ndarray, s: np.ndarray) -> np.ndarray:
-    """T·R·S -> (...,4,4) (glam Mat4::from_scale_rotation_translation)."""
+    """T·R·S -> (...,4,4); matches glam Mat4::from_scale_rotation_translation
+    used by the reference node local matrices (graph/mod.rs Node::update_matrix)."""
     rot = quat_to_mat3(r)
     m = mat4_identity(np.broadcast_shapes(t.shape[:-1], r.shape[:-1], s.shape[:-1]))
     m[..., :3, :3] = rot * s[..., None, :]
@@ -54,6 +97,7 @@ def compose_trs(t: np.ndarray, r: np.ndarray, s: np.ndarray) -> np.ndarray:
     return m
 
 
+# ---------------------------------------------------------------- projections
 def look_at_rh(eye: np.ndarray, center: np.ndarray, up: np.ndarray) -> np.ndarray:
     f = normalize(np.asarray(center, np.float32) - np.asarray(eye, np.float32))
     s = normalize(np.cross(f, up))
@@ -69,7 +113,7 @@ def look_at_rh(eye: np.ndarray, center: np.ndarray, up: np.ndarray) -> np.ndarra
 
 
 def perspective_rh(fov_y_rad: float, aspect: float, near: float, far: float) -> np.ndarray:
-    """RH, depth 0..1 (glam perspective_rh)."""
+    """RH, depth 0..1 (matches glam perspective_rh used in light/camera matrices)."""
     f = 1.0 / np.tan(0.5 * fov_y_rad)
     m = np.zeros((4, 4), dtype=np.float32)
     m[0, 0] = f / aspect
@@ -91,6 +135,19 @@ def orthographic_rh(l: float, r: float, b: float, t: float, near: float, far: fl
     return m
 
 
+# ---------------------------------------------------------------- application
+def transform_points(m: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """(...,4,4) @ (...,N,3) -> (...,N,3) with w=1."""
+    out = np.einsum("...ij,...nj->...ni", m[..., :3, :3], p) + m[..., None, :3, 3]
+    return out.astype(np.float32)
+
+
+def transform_vectors(m: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Rotate/scale only (w=0)."""
+    return np.einsum("...ij,...nj->...ni", m[..., :3, :3], v).astype(np.float32)
+
+
 def inverse_transpose3(m: np.ndarray) -> np.ndarray:
-    """Normal matrix: inverse-transpose of the upper 3x3."""
+    """Normal matrix: inverse-transpose of the upper 3x3
+    (reference backends/wgpu/src/lib.rs:508-541 computes this per instance)."""
     return np.linalg.inv(m[..., :3, :3]).swapaxes(-1, -2).astype(np.float32)

@@ -1,16 +1,189 @@
-"""Area-light extraction (host copy of `extract_area_lights` from
-`rfw_tpu/scene/lights.py`): one area light per emissive triangle per
-instance, extracted as a vectorized gather, returned as an
-`AreaLightsView`.
+"""Light containers + shadow projections + area-light extraction.
+
+Reference: `Lights` = four TrackedStorages (rfw-scene/src/lib.rs:100-118);
+per-type shadow projection matrices + 256B-aligned `LightInfo`
+(src/lights/mod.rs:8-279); area-light extraction scans emissive-material
+mesh ranges and instantiates one AreaLight per emissive triangle per
+instance, back-writing `light_id` into the triangles (src/lib.rs:575-648).
+
+TPU re-design: extraction is a *vectorized gather* over the packed triangle
+arena rather than nested loops, and the result is SoA (AreaLightsView).
+Shadow matrices remain host-side (they are per-light scalars).
+
+Host copy of `rfw_tpu/scene/lights.py`: the same numpy code with its imports
+rewritten to `rfw_tpu_torch`, so that it computes what the original
+computes, bit for bit.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
 
-from rfw_tpu_torch.backend.lights import AreaLightsView
+from rfw_tpu_torch.backend.lights import (
+    AreaLightsView,
+    DirectionalLightsView,
+    PointLightsView,
+    SpotLightsView,
+)
+from rfw_tpu_torch.mathx import look_at_rh, normalize, orthographic_rh, perspective_rh
+from rfw_tpu_torch.utils.collections import TrackedStorage
+
+
+@dataclass
+class PointLight:
+    position: np.ndarray
+    energy: np.ndarray  # rgb radiant intensity
+
+    def cube_matrices(self, near: float = 0.1, far: float = 100.0) -> np.ndarray:
+        """Six 90-degree view-projections (+X -X +Y -Y +Z -Z) for omni shadow
+        rendering (reference PointLight cube matrices, rfw-backend/src/
+        lights.rs:137-180). Returns (6, 4, 4) f32."""
+        p = self.position.astype(np.float32)
+        proj = perspective_rh(np.pi / 2.0, 1.0, near, far)
+        dirs = np.array(
+            [[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
+            np.float32,
+        )
+        mats = [
+            (proj @ look_at_rh(p, p + d, _up_for(d))).astype(np.float32) for d in dirs
+        ]
+        return np.stack(mats)
+
+
+@dataclass
+class SpotLight:
+    position: np.ndarray
+    direction: np.ndarray
+    energy: np.ndarray
+    inner_angle: float  # degrees
+    outer_angle: float  # degrees
+
+    @property
+    def cos_inner(self) -> float:
+        return float(np.cos(np.deg2rad(self.inner_angle)))
+
+    @property
+    def cos_outer(self) -> float:
+        return float(np.cos(np.deg2rad(self.outer_angle)))
+
+    def shadow_matrix(self, near: float = 0.1, far: float = 100.0) -> np.ndarray:
+        """Perspective from outer cone (reference lights/mod.rs spot pm)."""
+        fov = 2.0 * np.arccos(np.clip(self.cos_outer, -1, 1))
+        proj = perspective_rh(float(fov), 1.0, near, far)
+        view = look_at_rh(self.position, self.position + self.direction, _up_for(self.direction))
+        return (proj @ view).astype(np.float32)
+
+
+@dataclass
+class DirectionalLight:
+    direction: np.ndarray
+    energy: np.ndarray
+
+    def shadow_matrix(self, scene_min: np.ndarray, scene_max: np.ndarray) -> np.ndarray:
+        """Ortho fitted to the scene AABB (reference directional pm)."""
+        center = 0.5 * (scene_min + scene_max)
+        radius = 0.5 * float(np.linalg.norm(scene_max - scene_min)) + 1e-3
+        d = normalize(self.direction.astype(np.float32))
+        eye = center - d * radius * 1.5
+        view = look_at_rh(eye, center, _up_for(d))
+        proj = orthographic_rh(-radius, radius, -radius, radius, 0.01, 4.0 * radius)
+        return (proj @ view).astype(np.float32)
+
+
+def area_light_shadow_matrix(
+    position: np.ndarray, normal: np.ndarray, near: float = 0.1, far: float = 100.0
+) -> np.ndarray:
+    """150-degree perspective along the emitter normal (reference area-light
+    pm, rfw-scene/src/lights/mod.rs area impl)."""
+    p = position.astype(np.float32)
+    n = normalize(normal.astype(np.float32))
+    proj = perspective_rh(float(np.deg2rad(150.0)), 1.0, near, far)
+    view = look_at_rh(p, p + n, _up_for(n))
+    return (proj @ view).astype(np.float32)
+
+
+def pack_light_info(pm: np.ndarray, position: np.ndarray, rng: float) -> np.ndarray:
+    """256-byte-aligned LightInfo {pm: mat4, pos: vec3, range: f32, pad}
+    (reference LightInfo, rfw-scene/src/lights/mod.rs:8-279 and its
+    size/alignment test :280-287). Returns a (64,) f32 block (256 bytes)."""
+    out = np.zeros(64, np.float32)
+    out[:16] = np.asarray(pm, np.float32).reshape(16)
+    out[16:19] = np.asarray(position, np.float32).reshape(3)
+    out[19] = np.float32(rng)
+    return out
+
+
+def _up_for(direction: np.ndarray) -> np.ndarray:
+    d = normalize(np.asarray(direction, np.float32))
+    return (
+        np.array([0, 1, 0], np.float32)
+        if abs(float(d[1])) < 0.99
+        else np.array([1, 0, 0], np.float32)
+    )
+
+
+class Lights:
+    """Four tracked light pools (reference Lights container)."""
+
+    def __init__(self) -> None:
+        self.point: TrackedStorage[PointLight] = TrackedStorage()
+        self.spot: TrackedStorage[SpotLight] = TrackedStorage()
+        self.directional: TrackedStorage[DirectionalLight] = TrackedStorage()
+        # area lights are derived (extraction), stored dense
+        self.area: AreaLightsView = AreaLightsView.empty()
+        self.area_changed = False
+
+    # ---- lowering ------------------------------------------------------
+    def point_view(self) -> PointLightsView:
+        items = [l for _, l in self.point]
+        if not items:
+            return PointLightsView.empty()
+        return PointLightsView(
+            position=np.stack([l.position for l in items]).astype(np.float32),
+            energy=np.stack([l.energy for l in items]).astype(np.float32),
+            changed=np.ones(len(items), bool),
+        )
+
+    def spot_view(self) -> SpotLightsView:
+        items = [l for _, l in self.spot]
+        if not items:
+            return SpotLightsView.empty()
+        return SpotLightsView(
+            position=np.stack([l.position for l in items]).astype(np.float32),
+            direction=np.stack([normalize(l.direction) for l in items]).astype(np.float32),
+            energy=np.stack([l.energy for l in items]).astype(np.float32),
+            cos_inner=np.array([l.cos_inner for l in items], np.float32),
+            cos_outer=np.array([l.cos_outer for l in items], np.float32),
+            changed=np.ones(len(items), bool),
+        )
+
+    def directional_view(self) -> DirectionalLightsView:
+        items = [l for _, l in self.directional]
+        if not items:
+            return DirectionalLightsView.empty()
+        return DirectionalLightsView(
+            direction=np.stack([normalize(l.direction) for l in items]).astype(np.float32),
+            energy=np.stack([l.energy for l in items]).astype(np.float32),
+            changed=np.ones(len(items), bool),
+        )
+
+    @property
+    def any_changed(self) -> bool:
+        return (
+            self.point.any_changed
+            or self.spot.any_changed
+            or self.directional.any_changed
+            or self.area_changed
+        )
+
+    def reset_changed(self) -> None:
+        self.point.reset_changed()
+        self.spot.reset_changed()
+        self.directional.reset_changed()
+        self.area_changed = False
 
 
 def extract_area_lights(

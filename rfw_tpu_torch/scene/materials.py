@@ -1,19 +1,27 @@
-"""Material + texture store (host copy of `rfw_tpu/scene/materials.py`).
+"""Material + texture store.
 
-`Materials` holds slot storages of materials and textures, an emissive
-`light_flags` bitmap (any color channel > 1 => area-light emitter) and a
-texture-path dedup map.
-`to_device` lowers the materials to the float SoA block of
-`rfw_tpu_torch.backend.structs.DeviceMaterials`; textures carry full mip
-chains as uint8 RGBA arrays that `render.atlas.pack_atlas` flattens.
+Reference: crates/rfw-scene/src/material/list.rs:19-814 — `Materials` holds
+TrackedStorage<Material> + TrackedStorage<Texture>, an emissive `light_flags`
+BitVec (any color channel > 1 => treated as an area-light emitter,
+list.rs:494), a texture-path dedup map, a reverse texture->material
+dependency map (texture edit re-flags dependent materials :599-605), mipmap
+generation on push (:517-527), and float->u32 device packing (:683-814).
+
+TPU re-design: the Material stays a host dataclass; device lowering produces
+the float SoA block of `rfw_tpu_torch.backend.structs.DeviceMaterials` (no 8-bit
+packing — gathers want flat float columns). Textures carry full mip chains
+as uint8 RGBA arrays; the backend flattens them into a device atlas.
+
+Host copy of `rfw_tpu/scene/materials.py`: the same numpy code with its imports
+rewritten to `rfw_tpu_torch`, so that it computes what the original
+computes, bit for bit.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
 
@@ -28,9 +36,10 @@ from rfw_tpu_torch.backend.structs import (
     MATFLAG_HAS_SHEEN_MAP,
     TextureView,
 )
-from rfw_tpu_torch.utils.collections import FlaggedStorage
+from rfw_tpu_torch.utils.collections import TrackedStorage
+from rfw_tpu_torch.utils import log
 
-_LOG = logging.getLogger("rfw_tpu_torch.materials")
+_LOG = log.get("materials")
 
 MIN_TEXTURE_SIZE = 64  # reference enforces >=64px on push (list.rs:517-527)
 
@@ -96,6 +105,14 @@ class Texture:
         return Texture(mips=generate_mips(rgba), path=path, srgb=srgb)
 
     @staticmethod
+    def load(path: str, srgb: bool = True) -> "Texture":
+        from PIL import Image
+
+        with Image.open(path) as im:
+            rgba = np.asarray(im.convert("RGBA"))
+        return Texture.from_array(rgba, path=path, srgb=srgb)
+
+    @staticmethod
     def solid(rgba: Sequence[float], size: int = MIN_TEXTURE_SIZE) -> "Texture":
         px = np.clip(np.asarray(rgba, np.float32) * 255.0 + 0.5, 0, 255).astype(np.uint8)
         return Texture.from_array(np.tile(px, (size, size, 1)))
@@ -110,6 +127,20 @@ class Texture:
 
     def view(self) -> TextureView:
         return TextureView(mips=self.mips, srgb=self.srgb)
+
+    def merge_metallic_roughness(self, other: Optional["Texture"]) -> "Texture":
+        """Combine metallic (B) and roughness (G) maps into one texture,
+        glTF layout (reference obj.rs merges map_pm/map_pr similarly)."""
+        if other is None:
+            return self
+        a, b = self.mips[0], other.mips[0]
+        if a.shape != b.shape:
+            from PIL import Image
+
+            b = np.asarray(Image.fromarray(b).resize((a.shape[1], a.shape[0])))
+        out = a.copy()
+        out[..., 2] = b[..., 2]
+        return Texture.from_array(out, srgb=False)
 
 
 # ----------------------------------------------------------------- materials
@@ -159,12 +190,13 @@ class Material:
 
 
 class Materials:
-    """Material + texture storage with texture-path dedup."""
+    """Material + texture storage with change tracking and dedup."""
 
     def __init__(self) -> None:
-        self.materials: FlaggedStorage[Material] = FlaggedStorage()
-        self.textures: FlaggedStorage[Texture] = FlaggedStorage()
+        self.materials: TrackedStorage[Material] = TrackedStorage()
+        self.textures: TrackedStorage[Texture] = TrackedStorage()
         self._tex_by_path: Dict[str, int] = {}
+        self._tex_to_mats: Dict[int, Set[int]] = {}
         # slot 0: default white material + default texture, like the reference
         self.push(Material(name="default"))
         self.push_texture(Texture.solid((1.0, 1.0, 1.0, 1.0)))
@@ -172,14 +204,30 @@ class Materials:
     # ---- materials ----------------------------------------------------
     def push(self, mat: Material) -> int:
         idx = self.materials.push(mat)
+        for t in self._mat_textures(mat):
+            self._tex_to_mats.setdefault(t, set()).add(idx)
         _LOG.info("added material %d (%s)", idx, mat.name)
         return idx
 
     def get(self, idx: int) -> Material:
         return self.materials[idx]
 
+    def get_mut(self, idx: int) -> Material:
+        return self.materials.get_mut(idx)
+
     def __len__(self) -> int:
         return len(self.materials)
+
+    @staticmethod
+    def _mat_textures(mat: Material) -> List[int]:
+        return [
+            t
+            for t in (
+                mat.diffuse_tex, mat.normal_tex, mat.metallic_roughness_tex,
+                mat.emissive_tex, mat.sheen_tex, mat.custom_tex,
+            )
+            if t >= 0
+        ]
 
     # ---- textures -----------------------------------------------------
     def push_texture(self, tex: Texture) -> int:
@@ -191,6 +239,19 @@ class Materials:
         if tex.path:
             self._tex_by_path[os.path.abspath(tex.path)] = idx
         return idx
+
+    def load_texture(self, path: str, srgb: bool = True) -> int:
+        key = os.path.abspath(path)
+        if key in self._tex_by_path:
+            return self._tex_by_path[key]
+        return self.push_texture(Texture.load(path, srgb=srgb))
+
+    def touch_texture(self, idx: int) -> None:
+        """Mark texture changed and re-flag dependent materials
+        (reference list.rs:599-605)."""
+        self.textures.touch(idx)
+        for m in self._tex_to_mats.get(idx, ()):
+            self.materials.touch(m)
 
     # ---- lowering -----------------------------------------------------
     def light_flags(self) -> np.ndarray:
@@ -255,3 +316,11 @@ class Materials:
             color=color, specular=specular, absorption=absorption,
             params=params, flags=flags, tex=tex,
         ).validate()
+
+    @property
+    def any_changed(self) -> bool:
+        return self.materials.any_changed or self.textures.any_changed
+
+    def reset_changed(self) -> None:
+        self.materials.reset_changed()
+        self.textures.reset_changed()

@@ -34,7 +34,8 @@ def build_scene(seed: int, views: bool = False):
     from rfw_tpu_torch.render.atlas import pack_atlas
     from rfw_tpu_torch.render.lights_pack import pack_lights
     from rfw_tpu_torch.render.pack import pack_trace_scene
-    from rfw_tpu_torch.scene import Camera3D, Material, Materials, Texture, extract_area_lights
+    from rfw_tpu_torch.scene import Camera3D, Material, Materials, Texture
+    from rfw_tpu_torch.scene.lights import extract_area_lights
 
     rng = np.random.default_rng(seed)
     mats = Materials()
@@ -128,7 +129,8 @@ def build_heavy_scene(seed: int, n_inst: int):
     from rfw_tpu_torch.render.atlas import pack_atlas
     from rfw_tpu_torch.render.lights_pack import pack_lights
     from rfw_tpu_torch.render.pack import pack_trace_scene
-    from rfw_tpu_torch.scene import Camera3D, Material, Materials, extract_area_lights
+    from rfw_tpu_torch.scene import Camera3D, Material, Materials
+    from rfw_tpu_torch.scene.lights import extract_area_lights
 
     rng = np.random.default_rng(seed)
     mats = Materials()

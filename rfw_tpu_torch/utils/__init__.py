@@ -1,2 +1,4 @@
-from rfw_tpu_torch.utils.collections import FlaggedStorage
+from rfw_tpu_torch.utils.collections import FlaggedStorage, TrackedStorage
+from rfw_tpu_torch.utils.track import Tracked
 from rfw_tpu_torch.utils.timing import Timer, Averager
+from rfw_tpu_torch.utils.task import TaskPool

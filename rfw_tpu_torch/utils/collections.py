@@ -1,11 +1,26 @@
-"""Slot-map storage (host copy of `FlaggedStorage` from
-`rfw_tpu/utils/collections.py`): stable integer slots with O(1)
-allocate/erase and free-list reuse.
+"""Slot-map storages with change tracking.
+
+Fresh TPU-first design with the semantics of the reference's storage
+primitives (reference: crates/rfw-utils/src/collections.rs — FlaggedStorage
+:87-125, TrackedStorage :389-509): stable integer slots with O(1)
+allocate/erase and free-list reuse, plus a *change feed* that the host->device
+sync protocol drains once per frame.
+
+Differences from the reference by design:
+  * `changed` is a Python ``set`` of slot indices rather than a BitVec — the
+    consumer on TPU wants an *index list* to turn into gather/scatter
+    ``device_put`` deltas, not a bitmask scan.
+  * Values are arbitrary Python objects (usually SoA dataclasses holding
+    numpy arrays); the device mirror lives in the backend, keyed by slot.
+
+Host copy of `rfw_tpu/utils/collections.py`: the same numpy code with its imports
+rewritten to `rfw_tpu_torch`, so that it computes what the original
+computes, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Generic, Iterator, List, Optional, TypeVar
+from typing import Generic, Iterator, List, Optional, Set, TypeVar
 
 T = TypeVar("T")
 
@@ -93,3 +108,69 @@ class FlaggedStorage(Generic[T]):
 
     def indices(self) -> List[int]:
         return [i for i, a in enumerate(self._active) if a]
+
+
+class TrackedStorage(FlaggedStorage[T]):
+    """FlaggedStorage + change feed: the host->device sync primitive.
+
+    Reference semantics (collections.rs:389-509): any mutating access marks
+    the slot changed; the per-frame sync drains ``changed`` and ``erased``
+    then calls :meth:`reset_changed`.
+    """
+
+    __slots__ = ("_changed", "_erased")
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._changed: Set[int] = set()
+        self._erased: List[int] = []
+
+    # -- mutation (all mark dirty) -------------------------------------
+    def allocate(self) -> int:
+        idx = super().allocate()
+        self._changed.add(idx)
+        return idx
+
+    def overwrite(self, idx: int, value: T) -> None:
+        super().overwrite(idx, value)
+        self._changed.add(idx)
+
+    def erase(self, idx: int) -> T:
+        v = super().erase(idx)
+        self._changed.discard(idx)
+        self._erased.append(idx)
+        return v
+
+    def get_mut(self, idx: int) -> T:
+        """Fetch for mutation: marks the slot changed
+        (reference collections.rs:403-411)."""
+        v = self[idx]
+        self._changed.add(idx)
+        return v
+
+    def touch(self, idx: int) -> None:
+        if idx in self:
+            self._changed.add(idx)
+
+    def trigger_changed_all(self) -> None:
+        self._changed.update(self.indices())
+
+    # -- change feed ----------------------------------------------------
+    @property
+    def any_changed(self) -> bool:
+        return bool(self._changed) or bool(self._erased)
+
+    def changed_indices(self) -> List[int]:
+        return sorted(self._changed)
+
+    def iter_changed(self) -> Iterator[tuple]:
+        for i in sorted(self._changed):
+            yield i, self._items[i]
+
+    def take_erased(self) -> List[int]:
+        e, self._erased = self._erased, []
+        return e
+
+    def reset_changed(self) -> None:
+        self._changed.clear()
+        self._erased.clear()

@@ -9,17 +9,23 @@ plastic, glass) with a few seeded instances each, a checker-textured floor
 quad, an emissive quad registered as two area lights, a spot light and a
 sun.
 
-`recorder()` is rfw_tpu's RecordingBackend keeping a copy of every call's
-arguments; `replay` feeds the recorded calls to a backend, with each view
-rebuilt as the port's class of the same name (`to_port`) for the port's.
+`Recorder` is a backend of neither package that records every contract
+call with a copy of its arguments; `replay` feeds the recorded calls to a
+backend, with each view rebuilt as the port's class of the same name
+(`to_port`) for the port's. `sync_full` re-triggers every change feed of a
+`Scene` and drains it into a backend, and `same` holds a value made by the
+port against the one rfw_tpu made, bit for bit, down through dataclasses,
+containers and arrays.
 """
 
 from __future__ import annotations
 
+import base64
 import copy
 import dataclasses
 import enum
 import importlib
+import io
 
 import numpy as np
 
@@ -30,31 +36,262 @@ STREAM = ("set_3d_meshes", "unload_3d_meshes", "set_3d_instances", "set_2d_meshe
           "set_directional_lights", "set_skins", "synchronize")
 
 
-def recorder():
-    """An rfw_tpu RecordingBackend that also keeps, in `.stream`, a deep
-    copy of each call's arguments; `.take()` returns and clears it."""
-    from rfw_tpu.backend.contract import RecordingBackend
+class Recorder:
+    """A backend of neither package: each contract call is kept in
+    `.stream` as (name, deep copy of its arguments); `render` returns a
+    black frame of the current size."""
 
-    def keep(name):
-        base = getattr(RecordingBackend, name)
+    def __init__(self, width: int = 0, height: int = 0):
+        self.stream = []
+        self.width, self.height = width, height
 
-        def call(self, *args):
+    def __getattr__(self, name):
+        if name not in STREAM:
+            raise AttributeError(name)
+
+        def call(*args):
             self.stream.append((name, copy.deepcopy(args)))
-            return base(self, *args)
         return call
 
-    class StreamRecorder(RecordingBackend):
-        def __init__(self):
-            super().__init__()
-            self.stream = []
+    def take(self):
+        out, self.stream = self.stream, []
+        return out
 
-        def take(self):
-            out, self.stream = self.stream, []
-            return out
+    def render(self, view_2d, view_3d, mode):
+        self.stream.append(("render", copy.deepcopy((view_2d, view_3d, mode))))
+        return np.zeros((self.height, self.width, 4), np.uint8)
 
-    for name in STREAM:
-        setattr(StreamRecorder, name, keep(name))
-    return StreamRecorder()
+    def resize(self, width, height, scale=1.0):
+        self.width, self.height = int(width * scale), int(height * scale)
+        self.stream.append(("resize", (width, height, scale)))
+
+    @classmethod
+    def from_window_handle(cls, window, width=None, height=None, scale=None, settings=None):
+        backend = cls()
+        w, h = window.inner_size()
+        backend.resize(int(width if width is not None else w),
+                       int(height if height is not None else h),
+                       float(scale if scale is not None else window.scale_factor()))
+        return backend
+
+
+def sync_full(scene, backend) -> None:
+    """Re-trigger every change feed of `scene`, then drain it into
+    `backend` (the pump is consuming, so a second backend needs a full
+    re-trigger): `tests/test_reference_backend.py::sync_full`."""
+    scene.meshes_3d.trigger_changed_all()
+    scene.meshes_2d.trigger_changed_all()
+    for il in scene.instances_2d.values():
+        il.changed[il.active] = True
+        il.any_changed = bool(il.active.any())
+    scene.materials.materials.trigger_changed_all()
+    scene.materials.textures.trigger_changed_all()
+    scene._instances_changed = True
+    scene.lights.point.trigger_changed_all()
+    scene.lights.spot.trigger_changed_all()
+    scene.lights.directional.trigger_changed_all()
+    scene.lights.area_changed = True
+    scene.skybox.trigger_changed()
+    scene.skins.trigger_changed_all()
+    scene.synchronize(backend)
+
+
+def _pkg_of(x) -> str:
+    return type(x).__module__.split(".")[0]
+
+
+def same(ref, got, path: str = "value", _seen=None) -> None:
+    """Assert that `got` (made by the port) equals `ref` (made by rfw_tpu,
+    or by the port again) bit for bit: arrays by dtype, shape and `np.array_equal` (NaNs equal),
+    objects of either package by class name and then field by field (their
+    `__dict__`, or `__slots__`), containers element by element, enum members
+    by name, anything else by `==`."""
+    seen = set() if _seen is None else _seen
+    key = (id(ref), id(got))
+    if key in seen:
+        return
+    seen.add(key)
+    if isinstance(ref, np.ndarray) or isinstance(got, np.ndarray):
+        assert isinstance(ref, np.ndarray) and isinstance(got, np.ndarray), \
+            f"{path}: {type(ref)} vs {type(got)}"
+        assert ref.dtype == got.dtype and ref.shape == got.shape, \
+            f"{path}: {ref.dtype}{ref.shape} vs {got.dtype}{got.shape}"
+        assert np.array_equal(ref, got, equal_nan=ref.dtype.kind in "fc"), f"{path} differs"
+        return
+    if isinstance(ref, enum.Enum):
+        assert isinstance(got, enum.Enum) and type(ref).__name__ == type(got).__name__ \
+            and ref.name == got.name, f"{path}: {ref} vs {got}"
+        return
+    if isinstance(ref, dict):
+        assert isinstance(got, dict) and list(ref) == list(got), \
+            f"{path}: keys {list(ref)} vs {list(got)}"
+        for k in ref:
+            same(ref[k], got[k], f"{path}[{k!r}]", seen)
+        return
+    if isinstance(ref, (list, tuple, set, frozenset)) and type(ref).__module__ == "builtins":
+        assert type(ref) is type(got) and len(ref) == len(got), f"{path}: {ref!r} vs {got!r}"
+        a, b = (sorted(ref), sorted(got)) if isinstance(ref, (set, frozenset)) else (ref, got)
+        for i, (x, y) in enumerate(zip(a, b)):
+            same(x, y, f"{path}[{i}]", seen)
+        return
+    if _pkg_of(ref) in ("rfw_tpu", "rfw_tpu_torch"):
+        assert _pkg_of(got) in ("rfw_tpu", "rfw_tpu_torch"), f"{path}: {type(ref)} vs {type(got)}"
+        assert type(ref).__name__ == type(got).__name__, f"{path}: {type(ref)} vs {type(got)}"
+        if isinstance(ref, tuple):  # NamedTuple
+            for f in ref._fields:
+                same(getattr(ref, f), getattr(got, f), f"{path}.{f}", seen)
+            return
+        names = list(getattr(ref, "__dict__", {}))
+        for cls in type(ref).__mro__:
+            names += [n for n in getattr(cls, "__slots__", ()) if n not in names]
+        for n in names:
+            same(getattr(ref, n), getattr(got, n), f"{path}.{n}", seen)
+        return
+    assert type(ref) is type(got) and ref == got, f"{path}: {ref!r} vs {got!r}"
+
+
+def same_stream(ref, got) -> None:
+    """Two recorded streams: the same calls, in the same order, with the
+    same arguments (`same`)."""
+    assert [c[0] for c in ref] == [c[0] for c in got], \
+        ([c[0] for c in ref], [c[0] for c in got])
+    for i, (a, b) in enumerate(zip(ref, got)):
+        same(a[1:], b[1:], f"call {i} {a[0]}")
+
+
+def _png(rgba: np.ndarray) -> str:
+    from PIL import Image
+
+    out = io.BytesIO()
+    Image.fromarray(rgba).save(out, format="PNG")
+    return "data:image/png;base64," + base64.b64encode(out.getvalue()).decode()
+
+
+def gltf_doc(images: bool = True) -> dict:
+    """A small glTF document: a ribbon (10 vertices, 8 triangles) skinned
+    to two joints, with a morph target (position and normal deltas) and
+    default weights, its positions and normals interleaved in one strided
+    buffer view; an animation of the tip joint's rotation (LINEAR), the
+    root's translation (STEP) and the morph weight; a floor quad textured
+    by two embedded PNGs (baseColor and metallic-roughness; PIL encodes
+    them), or with `images=False` by none."""
+    f32 = np.float32
+    ys = np.linspace(0, 2, 5, dtype=f32)
+    pos = np.array([[x, y, 0] for y in ys for x in (-0.5, 0.5)], f32)
+    nrm = np.tile(np.array([0, 0, 1], f32), (10, 1))
+    uv = np.stack([pos[:, 0] + 0.5, pos[:, 1] / 2], -1).astype(f32)
+    idx = np.array([[2 * i, 2 * i + 1, 2 * i + 3, 2 * i, 2 * i + 3, 2 * i + 2]
+                    for i in range(4)], np.uint16).reshape(-1)
+    joints = np.tile(np.array([0, 1, 0, 0], np.uint8), (10, 1))
+    w1 = np.clip(pos[:, 1] - 0.5, 0, 1)
+    weights = np.stack([1 - w1, w1, np.zeros(10, f32), np.zeros(10, f32)], -1).astype(f32)
+    d_pos = np.stack([np.zeros(10), np.zeros(10), 0.3 * pos[:, 1]], -1).astype(f32)
+    d_nrm = np.tile(np.array([0.2, 0, 0], f32), (10, 1))
+    ibm = np.stack([np.eye(4, dtype=f32), np.eye(4, dtype=f32)])
+    ibm[1, 1, 3] = -1.0  # the tip joint sits at y = 1
+    times = np.array([0.0, 1.0], f32)
+    s = np.sin(np.pi / 6)
+    rot = np.array([[0, 0, 0, 1], [0, 0, s, np.cos(np.pi / 6)]], f32)
+    step = np.array([[0, 0, 0], [0.2, 0, 0]], f32)
+    mw = np.array([[0.0], [1.0]], f32)
+    qpos = np.array([[-2, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2]], f32)
+    quv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], f32)
+    qidx = np.array([0, 2, 1, 0, 3, 2], np.uint16)
+
+    chunks, views, accessors = [], [], []
+    off = 0
+
+    def view(raw: bytes, stride=None):
+        nonlocal off
+        v = {"buffer": 0, "byteOffset": off, "byteLength": len(raw)}
+        if stride:
+            v["byteStride"] = stride
+        views.append(v)
+        pad = (-len(raw)) % 4
+        chunks.append(raw + b"\0" * pad)
+        off += len(raw) + pad
+        return len(views) - 1
+
+    def acc(arr, type_, ctype, bv=None, byte_offset=0, count=None):
+        if bv is None:
+            bv = view(np.ascontiguousarray(arr).tobytes())
+        a = {"bufferView": bv, "componentType": ctype, "count": count or len(arr),
+             "type": type_}
+        if byte_offset:
+            a["byteOffset"] = byte_offset
+        accessors.append(a)
+        return len(accessors) - 1
+
+    inter = view(np.concatenate([pos, nrm], 1).tobytes(), stride=24)  # strided
+    a_pos = acc(None, "VEC3", 5126, bv=inter, count=10)
+    a_nrm = acc(None, "VEC3", 5126, bv=inter, byte_offset=12, count=10)
+    prim_ribbon = {
+        "attributes": {"POSITION": a_pos, "NORMAL": a_nrm,
+                       "TEXCOORD_0": acc(uv, "VEC2", 5126),
+                       "JOINTS_0": acc(joints, "VEC4", 5121),
+                       "WEIGHTS_0": acc(weights, "VEC4", 5126)},
+        "indices": acc(idx, "SCALAR", 5123),
+        "material": 1,
+        "targets": [{"POSITION": acc(d_pos, "VEC3", 5126),
+                     "NORMAL": acc(d_nrm, "VEC3", 5126)}],
+    }
+    prim_quad = {
+        "attributes": {"POSITION": acc(qpos, "VEC3", 5126),
+                       "TEXCOORD_0": acc(quv, "VEC2", 5126)},
+        "indices": acc(qidx, "SCALAR", 5123),
+        "material": 0,
+    }
+    a_ibm = acc(ibm.transpose(0, 2, 1).reshape(2, 16), "MAT4", 5126)  # column-major
+    a_t = acc(times, "SCALAR", 5126)
+    samplers = [
+        {"input": a_t, "output": acc(rot, "VEC4", 5126), "interpolation": "LINEAR"},
+        {"input": a_t, "output": acc(step, "VEC3", 5126), "interpolation": "STEP"},
+        {"input": a_t, "output": acc(mw, "SCALAR", 5126)},
+    ]
+    buf = b"".join(chunks)
+    floor = {"name": "floor", "pbrMetallicRoughness": {
+        "baseColorFactor": [0.7, 0.75, 0.8, 1], "metallicFactor": 0.1, "roughnessFactor": 0.8}}
+    textured = {}
+    if images:
+        checker = ((np.indices((16, 16)).sum(0) // 4) % 2 * 200 + 30).astype(np.uint8)
+        tex_a = np.stack([checker, checker // 2, 255 - checker, np.full_like(checker, 255)], -1)
+        tex_b = np.zeros((8, 8, 4), np.uint8)
+        tex_b[..., 1] = np.arange(8, dtype=np.uint8)[:, None] * 30
+        tex_b[..., 3] = 255
+        textured = {"images": [{"uri": _png(tex_a)}, {"uri": _png(tex_b)}],
+                    "textures": [{"source": 0}, {"source": 1}]}
+        floor["pbrMetallicRoughness"].update(baseColorTexture={"index": 0},
+                                             metallicRoughnessTexture={"index": 1})
+    return {
+        "asset": {"version": "2.0"},
+        "buffers": [{"uri": "data:application/octet-stream;base64,"
+                            + base64.b64encode(buf).decode(), "byteLength": len(buf)}],
+        "bufferViews": views,
+        "accessors": accessors,
+        **textured,
+        "materials": [
+            floor,
+            {"name": "ribbon", "pbrMetallicRoughness": {
+                "baseColorFactor": [0.9, 0.5, 0.2, 1], "metallicFactor": 0.0},
+             "doubleSided": True},
+        ],
+        "meshes": [{"name": "ribbon", "weights": [0.5], "primitives": [prim_ribbon]},
+                   {"name": "floor", "primitives": [prim_quad]}],
+        "skins": [{"name": "bones", "joints": [0, 1], "inverseBindMatrices": a_ibm}],
+        "nodes": [
+            {"name": "root", "children": [1]},
+            {"name": "tip", "translation": [0, 1, 0]},
+            {"name": "ribbon", "mesh": 0, "skin": 0},
+            {"name": "floor", "mesh": 1, "translation": [0, -0.01, 0]},
+        ],
+        "animations": [{"name": "bend", "samplers": samplers, "channels": [
+            {"sampler": 0, "target": {"node": 1, "path": "rotation"}},
+            {"sampler": 1, "target": {"node": 0, "path": "translation"}},
+            {"sampler": 2, "target": {"node": 2, "path": "weights"}},
+        ]}],
+        "scenes": [{"nodes": [0, 2, 3]}],
+        "scene": 0,
+    }
 
 
 def _port_class(x):

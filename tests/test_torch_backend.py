@@ -2,7 +2,7 @@
 stream: a small scene built through rfw_tpu's Scene on the CPU (textured
 floor, two icosphere meshes, an emissive quad, point and directional
 lights, a skybox and a textured 2D quad), its synchronize recorded with
-rfw_tpu's RecordingBackend and replayed into both backends (each view
+`_torch_scene.Recorder` and replayed into both backends (each view
 rebuilt as the port's class from its fields, `tests/_torch_scene.py`).
 
 Both run sampler="sobol" with host dynamics (the reference with
@@ -87,7 +87,7 @@ def pair():
     mp = pytest.MonkeyPatch()
     mp.setenv("RFW_NO_NATIVE", "1")
     scene, handles = _scene()
-    rec = _torch_scene.recorder()
+    rec = _torch_scene.Recorder()
     scene.synchronize(rec)
     stream = rec.take()
     ref = TpuBackend(W, H, TpuSettings(**SETTINGS))

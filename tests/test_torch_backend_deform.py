@@ -109,7 +109,7 @@ def pair():
     mp = pytest.MonkeyPatch()
     mp.setenv("RFW_NO_NATIVE", "1")
     scene, sid, handles = _scene()
-    rec = _torch_scene.recorder()
+    rec = _torch_scene.Recorder()
     scene.synchronize(rec)
     stream = rec.take()
     ref = TpuBackend(W, H, TpuSettings(**SETTINGS))

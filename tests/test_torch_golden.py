@@ -3,7 +3,8 @@
 held through the port: the same OBJ scene, built with rfw_tpu's loader
 and packer on the CPU, converted with `rfw_tpu_torch.convert` and rendered
 by `rfw_tpu_torch.render.wavefront.render_sample` on the CPU (the plain
-traversal).
+traversal); and the same scene built with the port's own `ObjLoader`,
+`Materials`, packer and camera, with nothing of rfw_tpu.
 
 The golden's config is primary rays only (max_bounces=0) through pixel
 centres, with the albedo, normal and depth AOVs: no sample is drawn, so
@@ -71,10 +72,35 @@ def _scene(tmp_path):
     return scene, mats.to_device(), lights, atlas, cam.get_view(SIZE, SIZE).as_array()
 
 
-def test_obj_primary_golden(tmp_path):
-    if not os.path.exists(GOLDEN):
-        pytest.fail(f"missing golden {GOLDEN}")
-    scene_np, mats_np, lights_np, atlas_np, view = _scene(tmp_path)
+def _port_scene(tmp_path):
+    """`_scene`, built through the port's own loader, materials, packers
+    and camera."""
+    from rfw_tpu_torch.backend.lights import (
+        AreaLightsView, DirectionalLightsView, PointLightsView, SpotLightsView,
+    )
+    from rfw_tpu_torch.loaders.obj import ObjLoader
+    from rfw_tpu_torch.render.atlas import pack_atlas
+    from rfw_tpu_torch.render.lights_pack import pack_lights
+    from rfw_tpu_torch.render.pack import pack_trace_scene
+    from rfw_tpu_torch.scene.camera import Camera3D
+    from rfw_tpu_torch.scene.materials import Materials
+
+    (tmp_path / "gold.mtl").write_text(MTL_SRC)
+    obj = tmp_path / "gold.obj"
+    obj.write_text(OBJ_SRC)
+    mats = Materials()
+    mesh = ObjLoader().load(str(obj), mats).mesh
+    scene = pack_trace_scene([(0, mesh, None)], [(0, np.eye(4, dtype=np.float32)[None])])
+    lights = pack_lights(PointLightsView.empty(), SpotLightsView.empty(),
+                         DirectionalLightsView.empty(), AreaLightsView.empty())
+    atlas = pack_atlas([t for _, t in mats.textures])
+    cam = Camera3D(fov=50).look_at(np.array([1.6, 1.5, 2.2], np.float32),
+                                   np.array([0, 0.4, 0], np.float32))
+    return scene, mats.to_device(), lights, atlas, cam.get_view(SIZE, SIZE).as_array()
+
+
+def _gate(parts):
+    scene_np, mats_np, lights_np, atlas_np, view = parts
     scene, mats, lights, atlas = from_numpy_scene(scene_np, mats_np, lights_np, atlas_np,
                                                   "cpu")
     cfg = RenderConfig(max_bounces=0, sky_intensity=0.8, pixel_center=True, aovs=True,
@@ -96,3 +122,15 @@ def test_obj_primary_golden(tmp_path):
     assert frac_off < 0.01, f"obj_primary_64: {frac_off:.4f} of texels differ > 3"
     # the frame holds the scene, not a blank: the floor and the pyramid
     assert len(np.unique(img.reshape(-1, 7), axis=0)) > 10
+
+
+def test_obj_primary_golden(tmp_path):
+    if not os.path.exists(GOLDEN):
+        pytest.fail(f"missing golden {GOLDEN}")
+    _gate(_scene(tmp_path))
+
+
+def test_obj_primary_golden_port_loader(tmp_path):
+    if not os.path.exists(GOLDEN):
+        pytest.fail(f"missing golden {GOLDEN}")
+    _gate(_port_scene(tmp_path))

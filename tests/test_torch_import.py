@@ -3,7 +3,9 @@
 The machine with the GPU has no jax installed, so every module of
 rfw_tpu_torch (and chip_smoke.py) must import with `import jax` failing,
 and none may import rfw_tpu, whose host modules reach jax through their
-package __init__ files.
+package __init__ files. Pillow may be absent there too: every module
+imports with PIL blocked (the modules that decode or encode images import
+it inside the function that needs it).
 """
 
 import ast
@@ -29,6 +31,7 @@ class _Block(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, _Block())
+sys.modules["PIL"] = None  # importing a module must not need PIL either
 import rfw_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(rfw_tpu_torch.__path__, "rfw_tpu_torch.")]
 for n in names:
@@ -40,7 +43,9 @@ print("imported", len(names))
 """
 
 #: modules that must be among those imported with jax blocked (the
-#: backend layer and the host copies it needs, beside the renderer's)
+#: backend layer and the host copies it needs, the scene and app layer,
+#: the loaders, the font plugin and the numpy oracle, beside the
+#: renderer's)
 MODULES = [
     "rfw_tpu_torch.backend.contract", "rfw_tpu_torch.backend.structs",
     "rfw_tpu_torch.backend.lights", "rfw_tpu_torch.models.mesh2d",
@@ -50,6 +55,18 @@ MODULES = [
     "rfw_tpu_torch.render.fxaa", "rfw_tpu_torch.render.film",
     "rfw_tpu_torch.render.torch_backend", "rfw_tpu_torch.render.wavefront",
     "rfw_tpu_torch.convert", "rfw_tpu_torch.scenes",
+    "rfw_tpu_torch.utils.collections", "rfw_tpu_torch.utils.track",
+    "rfw_tpu_torch.utils.task", "rfw_tpu_torch.utils.physics",
+    "rfw_tpu_torch.mathx.transform", "rfw_tpu_torch.mathx.aabb",
+    "rfw_tpu_torch.scene.materials", "rfw_tpu_torch.scene.descriptor",
+    "rfw_tpu_torch.scene.instances", "rfw_tpu_torch.scene.camera",
+    "rfw_tpu_torch.scene.lights", "rfw_tpu_torch.scene.graph",
+    "rfw_tpu_torch.scene.scene", "rfw_tpu_torch.scene.serialize",
+    "rfw_tpu_torch.loaders", "rfw_tpu_torch.loaders.obj", "rfw_tpu_torch.loaders.gltf",
+    "rfw_tpu_torch.app", "rfw_tpu_torch.app.ecs", "rfw_tpu_torch.app.events",
+    "rfw_tpu_torch.app.input", "rfw_tpu_torch.app.timer", "rfw_tpu_torch.app.instance",
+    "rfw_tpu_torch.app.window", "rfw_tpu_torch.font", "rfw_tpu_torch.font.plugin",
+    "rfw_tpu_torch.render.cpu_reference",
 ]
 
 
