@@ -121,7 +121,29 @@ Phases (any failed check raises, so the script exits nonzero):
      here, at two animation times NORMAL, ALBEDO and GBUFFER frames at
      96x72 and 480x270 from TorchBackend on the card and from
      CpuReferenceBackend, each synced in full: RMSE at most 1e-3 per mode,
-     and the two times give different frames.
+     and the two times give different frames. Phases 10 and 11 take the
+     backend's host routes (device_dynamics and device_motion off);
+ 12. dynamics and the random sampler, with TorchSettings' defaults (the
+     device routes): (a) the flagship scene plus four instances of a
+     skinned, morphed tube of 20,480 triangles (24 joints in a chain, 2
+     morph targets) under two skins, 8 animated frames: every sync takes
+     the device route (apply_dynamic: no repack, KBs uploaded), the first
+     dynamic frame launches K1, K2 and K3 (counters reset just before its
+     sync, read after its render), the last frame's arenas within 1e-4 of
+     a full host repack of the same pose and its HDR frame within the
+     radiance tolerance of the host route's (device_dynamics=False), ms
+     per sync of both routes; (b) the 256 sphere instances moved for 8
+     frames: zero repack_instances calls (instance_motion_update), frames
+     against the host rebuild's (differing pixels counted), ms per motion
+     sync of both routes; (c) one motion sync of the instance-heavy scene
+     with device_motion=False at 10,000 instances (the Morton tree
+     outgrows the host collapse's padded rows: the host collapse stays)
+     and at 4,000 (build_tlas8_device runs), K1 on the 1080p primaries
+     over the device-built tree and over the host collapse: masks and t
+     identical, ids up to counted exact-t ties; (d) one 1080p sample with
+     sampler="random": every threefry uniform it drew on the card
+     identical to the same call on the CPU; ms per sample of "random"
+     against "sobol" in turns.
 The tests that need a card (tests/test_torch_*.py, `*_on_card`) cannot run
 where the card is (their conftest imports jax); these phases make their
 checks (.claude/skills/verify/SKILL.md maps each test to its phase).
@@ -140,7 +162,8 @@ fewer, the plain walk's alone in bound_ms_plain_counts; K6's by its own
 counts and by the plain version's likewise) and which of the two bounds
 it; no single PyTorch call computes a BVH traversal or either
 microbenchmark, so library_ms is null; launches_app is its launches in
-phase 11's first frame. The last line is
+phase 11's first frame, launches_dynamics in phase 12's first dynamic
+frame (its sync and its render). The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -1601,8 +1624,10 @@ def phase10(card, dev, parts, scene_np, lights_np, camera):
     )
 
     t_phase = time.perf_counter()
+    # the host routes (phase 12 drives the device routes)
     settings = TorchSettings(samples_per_frame=1, max_bounces=BOUNCES, clamp=20.0,
-                             sky_intensity=0.35, sampler="sobol")
+                             sky_intensity=0.35, sampler="sobol", device_dynamics=False,
+                             device_motion=False)
     be = TorchBackend(W, H, settings)
     assert be.device.type == "cuda", be.device
     mats = parts["materials"]
@@ -1877,9 +1902,11 @@ def phase11(card, dev, parts, scene_np, camera) -> dict:
     from rfw_tpu_torch.utils.physics import SphereWorld
 
     t_phase = time.perf_counter()
-    # ---- (a) the flagship scene through Instance and Scene
+    # ---- (a) the flagship scene through Instance and Scene (the host
+    # routes; phase 12 drives the device routes)
     settings = TorchSettings(samples_per_frame=1, max_bounces=BOUNCES, clamp=20.0,
-                             sky_intensity=0.35, sampler="sobol")
+                             sky_intensity=0.35, sampler="sobol", device_dynamics=False,
+                             device_motion=False)
     be = TorchBackend(W, H, settings)
     assert be.device.type == "cuda", be.device
     app = Instance(be, W, H)
@@ -2063,6 +2090,456 @@ def phase11(card, dev, parts, scene_np, camera) -> dict:
     return launches
 
 
+# ---- phase 12: dynamics and the random sampler
+DYN_FRAMES = 8
+TUBE_RINGS, TUBE_SEGMENTS, TUBE_JOINTS = 160, 64, 24  # 20,480 triangles
+TUBE_SLOT = 6
+# the device TLAS build's instance counts: phase 8's (whose Morton tree
+# outgrows the host collapse's padded rows, so the gate keeps the host
+# collapse) and one the gate lets through
+TLAS_COUNTS = (N_HEAVY, 4000)
+# tests/test_torch_wavefront.py's radiance tolerance, and
+# tests/test_refit_device.py's on the refit arenas
+PX_ATOL = PX_RTOL = 1e-3
+PX_SHARE = 0.99
+REFIT_TOL = 1e-4
+
+
+def skinned_tube(material_id: int):
+    """A closed tube of TUBE_RINGS x TUBE_SEGMENTS quads (20,480 triangles),
+    radius 0.6 and height 6 along y, skinned to a chain of TUBE_JOINTS
+    joints along its axis (each vertex blends its two nearest joints), with
+    two morph targets: a radial bulge (with normal deltas) and a shear in
+    x."""
+    from rfw_tpu_torch.models.mesh3d import build_mesh3d
+
+    rings, seg = TUBE_RINGS + 1, TUBE_SEGMENTS
+    y = np.repeat(np.linspace(0.0, 6.0, rings), seg)
+    a = np.tile(np.arange(seg) * (2 * np.pi / seg), rings)
+    radial = np.stack([np.cos(a), np.zeros_like(a), np.sin(a)], 1)
+    pos = (radial * 0.6 + np.stack([0 * y, y, 0 * y], 1)).astype(np.float32)
+    uvs = np.stack([a / (2 * np.pi), y / 6.0], 1).astype(np.float32)
+    r, s = np.meshgrid(np.arange(TUBE_RINGS), np.arange(seg), indexing="ij")
+    v00, v01 = r * seg + s, r * seg + (s + 1) % seg
+    v10, v11 = v00 + seg, v01 + seg
+    idx = np.concatenate([np.stack([v00, v11, v10], -1).reshape(-1, 3),
+                          np.stack([v00, v01, v11], -1).reshape(-1, 3)]).astype(np.int32)
+    f = y / 6.0 * (TUBE_JOINTS - 1)
+    j0 = np.minimum(np.floor(f), TUBE_JOINTS - 2).astype(np.int32)
+    w1 = (f - j0).astype(np.float32)
+    joints = np.stack([j0, j0 + 1, 0 * j0, 0 * j0], 1).astype(np.int32)
+    weights = np.stack([1 - w1, w1, 0 * w1, 0 * w1], 1).astype(np.float32)
+    bulge = (radial * (0.25 * np.sin(np.pi * y / 6.0))[:, None]).astype(np.float32)
+    shear = np.stack([0.4 * y / 6.0, 0 * y, 0 * y], 1).astype(np.float32)
+    d_nrm = np.zeros((2,) + pos.shape, np.float32)
+    d_nrm[0, :, 1] = -0.3 * np.cos(np.pi * y / 6.0)  # the bulge's slope
+    return build_mesh3d(pos, idx, normals=radial.astype(np.float32), uvs=uvs,
+                        material_ids=material_id, joints=joints, weights=weights,
+                        name="tube", morph_targets=np.stack([bulge, shear]),
+                        morph_normals=d_nrm)
+
+
+def tube_pose(t: float) -> np.ndarray:
+    """The chain's (TUBE_JOINTS, 4, 4) skinning matrices at time t: joint
+    j turns about z by 0.06 sin(t + 0.4 j) at its pivot on the axis,
+    composed down the chain."""
+    out, m = [], np.eye(4)
+    for j in range(TUBE_JOINTS):
+        th = 0.06 * np.sin(t + 0.4 * j)
+        rot = np.eye(4)
+        rot[0, 0], rot[0, 1], rot[1, 0], rot[1, 1] = np.cos(th), -np.sin(th), np.sin(th), np.cos(th)
+        piv = np.eye(4)
+        piv[1, 3] = j * 6.0 / (TUBE_JOINTS - 1)
+        m = m @ piv @ rot @ np.linalg.inv(piv)
+        out.append(m)
+    return np.stack(out).astype(np.float32)
+
+
+def feed_flagship(be, parts, extra_meshes=(), extra_instances=()):
+    """The flagship scene through the contract (phase 10's calls), with
+    extra meshes and instance views."""
+    from rfw_tpu_torch.backend import InstancesView3D
+
+    meshes = {slot: mesh for slot, mesh, _ in parts["meshes"]}
+    views = []
+    for slot, m in parts["instances"]:
+        n = m.shape[0]
+        views.append((slot, InstancesView3D(
+            matrices=m, skin_ids=np.full(n, -1, np.int32), changed=np.ones(n, bool),
+            local_aabb_min=meshes[slot].aabb_min, local_aabb_max=meshes[slot].aabb_max)))
+    mats = parts["materials"]
+    be.set_3d_meshes([(slot, mesh.view()) for slot, mesh in meshes.items()]
+                     + list(extra_meshes))
+    be.set_3d_instances(views + list(extra_instances))
+    be.set_materials(mats.to_device(), [i for i, _ in mats.materials])
+    be.set_textures([(i, t.view()) for i, t in mats.textures])
+    for name, setter in (("spot", be.set_spot_lights), ("sun", be.set_directional_lights),
+                         ("area", be.set_area_lights)):
+        if name in parts:
+            setter(parts[name])
+    be.synchronize()
+
+
+def phase12a(card, parts, camera, settings):
+    """Device dynamics: the flagship scene plus four instances of the
+    skinned, morphed tube under two skins, 8 animated frames by the device
+    route against the host route. Returns the first dynamic frame's
+    launches."""
+    import rfw_tpu_torch.render.torch_backend as tb
+    from rfw_tpu_torch.backend import InstancesView3D, SkinView
+    from rfw_tpu_torch.render import refit_device
+    from rfw_tpu_torch.render.torch_backend import TorchBackend
+
+    tube = skinned_tube(next(i for i, m in parts["materials"].materials
+                             if m.name == "diffuse"))
+    spots = np.array([[-4.5, 0, -4.5], [4.5, 0, -4.5], [-4.5, 0, 4.5], [4.5, 0, 4.5]], np.float32)
+    mats = np.stack([np.eye(4, dtype=np.float32)] * 4)
+    mats[:, :3, 3] = spots
+    skin_ids = np.array([0, 0, 1, 1], np.int32)
+
+    def frame_calls(t, lag=1.3):
+        """Skin 1 lags skin 0 by `lag`; its instances' weights by as much."""
+        w = np.array([[0.5 + 0.5 * np.sin(t), 0.5 + 0.5 * np.cos(t)]] * 2
+                     + [[0.5 + 0.5 * np.sin(t - lag), 0.5 + 0.5 * np.cos(t - lag)]] * 2,
+                     np.float32)
+        iv = InstancesView3D(matrices=mats, skin_ids=skin_ids, changed=np.ones(4, bool),
+                             local_aabb_min=tube.aabb_min, local_aabb_max=tube.aabb_max,
+                             morph_weights=w)
+        skins = [(0, SkinView(joint_matrices=tube_pose(t))),
+                 (1, SkinView(joint_matrices=tube_pose(t - lag)))]
+        return skins, [(TUBE_SLOT, iv)]
+
+    view = camera.get_view(W, H)
+    backends = {"device": TorchBackend(W, H, settings),
+                "host": TorchBackend(W, H, dataclasses.replace(settings, device_dynamics=False))}
+    assert backends["device"].settings.device_dynamics and backends["device"].device.type == "cuda"
+    for be in backends.values():
+        # both pose groups start in one pose: the first pack builds one BLAS
+        # topology for both, which the host route's later repacks refit (a
+        # group's own first build would differ from the cached one)
+        skins, inst = frame_calls(0.0, lag=0.0)
+        be.set_skins(skins)
+        feed_flagship(be, parts, [(TUBE_SLOT, tube.view())], inst)
+        be.render(None, view)
+    dyn = backends["device"]._dyn
+    n_levels = sum(len(p.levels) + len(p.levels8) for p in dyn["plans"])
+    log(card, f"phase 12 (a): flagship scene + {tube.indices.shape[0]}-triangle tube "
+              f"({TUBE_JOINTS} joints in a chain, 2 morph targets), 4 instances under 2 skins: "
+              f"{len(dyn['plans'])} deform units, {n_levels} BVH levels to refit, "
+              f"{dyn['tlas_plan'].passes_shape.shape[0]} Jacobi sweeps over the TLAS; "
+              f"{backends['device']._scene_host.tri_v0.shape[0]} triangle rows")
+
+    uploads, routes = [], Counter()
+    real_to_tensor = tb.to_tensor
+
+    def counted_upload(x, device):
+        uploads.append(np.asarray(x).nbytes)
+        return real_to_tensor(x, device)
+
+    dev_be = backends["device"]
+    for name in ("_rebuild_scene", "_apply_device_dynamics"):
+        def counted(*a, _fn=getattr(dev_be, name), _name=name, **k):
+            routes[_name] += 1
+            return _fn(*a, **k)
+        setattr(dev_be, name, counted)
+    host_before = dev_be._scene_host
+    sync_ms = defaultdict(list)
+    render_ms = defaultdict(list)
+    launches = {}
+    with patched(tb, to_tensor=counted_upload):
+        for k in range(DYN_FRAMES):
+            skins, inst = frame_calls(0.35 * (k + 1))
+            for name, be in backends.items():
+                if k == 0 and name == "device":
+                    torch.cuda.synchronize()
+                    reset_launches()
+                be.set_skins(skins)
+                be.set_3d_instances(inst)
+                be.synchronize()
+                sync_ms[name].append(be.stats["sync_ms"].last())
+                be.render(None, view)
+                render_ms[name].append(be.stats["render_ms"].last())
+                if k == 0 and name == "device":
+                    launches = read_launches()
+                    device_uploads = sum(uploads)
+    log(card, f"first dynamic frame (device route): launches {launches}")
+    for kind in ("closest", "occluded", "items_closest"):
+        assert launches[kind] > 0, f"the first dynamic frame never launched {kind}"
+    assert routes == Counter(_apply_device_dynamics=DYN_FRAMES), \
+        f"the dynamic syncs took the routes {dict(routes)}"
+    assert dev_be._scene_host is host_before, "a dynamic sync repacked"
+    log(card, f"device route: {DYN_FRAMES} syncs, routes {dict(routes)}, uploads of the first "
+              f"sync {device_uploads} B (joint matrices and morph weights), no repack")
+    assert device_uploads < 64 * 1024, f"the dynamic sync uploaded {device_uploads} B"
+    for name in backends:
+        log(card, f"{name} route: sync ms per frame "
+                  f"{', '.join(f'{x:.2f}' for x in sync_ms[name])}; render ms "
+                  f"{', '.join(f'{x:.2f}' for x in render_ms[name])}")
+    dev_sync, host_sync = np.mean(sync_ms["device"][1:]), np.mean(sync_ms["host"][1:])
+    log(card, f"dynamic sync, frames 1-{DYN_FRAMES - 1}: device route {dev_sync:.2f} ms mean "
+              f"({min(sync_ms['device'][1:]):.2f}-{max(sync_ms['device'][1:]):.2f}), host "
+              f"route {host_sync:.2f} ms mean ({min(sync_ms['host'][1:]):.2f}-"
+              f"{max(sync_ms['host'][1:]):.2f}): {host_sync / dev_sync:.2f}x")
+
+    # the last frame's arenas against a full host repack of the same pose
+    # (the host route's last pack), on the fields tests/test_refit_device.py
+    # compares; the TLAS topologies differ (the refit keeps the first)
+    dev, host = dev_be._scene_dev, backends["host"]._scene_host
+    worst = 0.0
+    for f in refit_device.UNIT_FIELDS + ("inst_aabb_min", "inst_aabb_max"):
+        a, b = getattr(dev, f).cpu().numpy(), getattr(host, f)
+        fin = np.isfinite(b)
+        assert np.array_equal(fin, np.isfinite(a)), f
+        np.testing.assert_allclose(a[fin], b[fin], rtol=REFIT_TOL, atol=REFIT_TOL, err_msg=f)
+        worst = max(worst, float(np.abs(a[fin] - b[fin]).max()))
+    hd, hh = dev_be.hdr_frame(), backends["host"].hdr_frame()
+    share = float((np.abs(hd - hh) <= PX_ATOL + PX_RTOL * np.abs(hh)).all(axis=-1).mean())
+    rel = float(abs(hd.mean() - hh.mean()) / hh.mean())
+    log(card, f"last dynamic frame: device arenas within {worst:.3e} of the host repack's "
+              f"(bar {REFIT_TOL} abs + rel); HDR frame vs the host route's: {share:.6f} of "
+              f"pixels within {PX_ATOL} abs + {PX_RTOL} rel, mean {hd.mean():.6f} vs "
+              f"{hh.mean():.6f} ({rel:.2e} relative)")
+    assert np.isfinite(hd).all() and share >= PX_SHARE and rel <= 1e-3, \
+        "the device route's frame disagrees with the host route's"
+
+    # the device refit alone, and its TLAS sweep alone
+    poses = [torch.from_numpy(tube_pose(9.0)).to(dev.tri_v0.device)] * len(dyn["plans"])
+    morphs = [torch.tensor([0.3, 0.7], device=dev.tri_v0.device)] * len(dyn["plans"])
+    apply_ms = cuda_ms(lambda: refit_device.apply_dynamic(
+        dev, dyn["plans"], dyn["tlas_plan"], poses, morphs), 5)
+    tlas_ms = cuda_ms(lambda: refit_device._refit_tlas(
+        dev, dyn["tlas_plan"], dev.inst_aabb_min, dev.inst_aabb_max), 5)
+    log(card, f"apply_dynamic alone: {apply_ms:.3f} ms ({len(dyn['plans'])} units, their level "
+              f"loops and the TLAS sweeps, eager); its TLAS refit alone {tlas_ms:.3f} ms")
+    return dict(launches=launches, sync_ms=sync_ms, apply_ms=apply_ms, tlas_ms=tlas_ms)
+
+
+def phase12b(card, parts, camera, settings):
+    """Device motion: the 256 sphere instances of the flagship scene moved
+    for 8 frames by the device route (TorchSettings' default device_motion)
+    against the host rebuild (device_motion=False)."""
+    import rfw_tpu_torch.render.torch_backend as tb
+    from rfw_tpu_torch.backend import InstancesView3D
+    from rfw_tpu_torch.render.torch_backend import TorchBackend
+
+    view = camera.get_view(W, H)
+    backends = {"device": TorchBackend(W, H, settings),
+                "host": TorchBackend(W, H, dataclasses.replace(settings, device_motion=False))}
+    assert backends["device"].settings.device_motion, "RFW_DEVICE_MOTION turned it off"
+    for be in backends.values():
+        feed_flagship(be, parts)
+        be.render(None, view)
+    meshes = {slot: mesh for slot, mesh, _ in parts["meshes"]}
+    rng = np.random.default_rng(SEED + 12)
+    spheres = [(slot, m.copy()) for slot, m in parts["instances"][:4]]
+    n_moved = sum(m.shape[0] for _, m in spheres)
+    repacks = Counter()
+    real = tb.repack_instances
+
+    def counted(*a, **k):
+        repacks["n"] += 1
+        return real(*a, **k)
+
+    geo = backends["device"]._scene_dev.tri_v0
+    sync_ms, frames = defaultdict(list), {}
+    differ = []
+    with patched(tb, repack_instances=counted):
+        for k in range(DYN_FRAMES):
+            moved = []
+            for slot, m in spheres:
+                m[:, :3, 3] += rng.uniform(-0.15, 0.15, (m.shape[0], 3)).astype(np.float32)
+                n = m.shape[0]
+                moved.append((slot, InstancesView3D(
+                    matrices=m.copy(), skin_ids=np.full(n, -1, np.int32),
+                    changed=np.ones(n, bool), local_aabb_min=meshes[slot].aabb_min,
+                    local_aabb_max=meshes[slot].aabb_max)))
+            for name, be in backends.items():
+                if name == "device":
+                    before = repacks["n"]
+                be.set_3d_instances(moved)
+                be.synchronize()
+                if name == "device":
+                    assert repacks["n"] == before, "a device motion sync repacked on the host"
+                sync_ms[name].append(be.stats["sync_ms"].last())
+                frames[name] = be.render(None, view)
+            d = (frames["device"] != frames["host"]).any(-1)
+            differ.append(int(d.sum()))
+    dev_be = backends["device"]
+    assert dev_be._motion_syncs == DYN_FRAMES and dev_be._scene_dev.tri_v0 is geo
+    assert repacks["n"] == DYN_FRAMES, f"host route repacks {repacks['n']}"
+    for name in backends:
+        log(card, f"phase 12 (b) {name} route: motion sync of {n_moved} instances, ms per "
+                  f"frame {', '.join(f'{x:.2f}' for x in sync_ms[name])}")
+    dm, hm = np.mean(sync_ms["device"][1:]), np.mean(sync_ms["host"][1:])
+    log(card, f"motion sync, frames 1-{DYN_FRAMES - 1}: device route {dm:.2f} ms mean "
+              f"({min(sync_ms['device'][1:]):.2f}-{max(sync_ms['device'][1:]):.2f}; zero "
+              f"repack_instances calls in {DYN_FRAMES} syncs), host rebuild {hm:.2f} ms mean "
+              f"({min(sync_ms['host'][1:]):.2f}-{max(sync_ms['host'][1:]):.2f})")
+    diff = np.abs(frames["device"].astype(np.int32) - frames["host"].astype(np.int32)).max(-1)
+    log(card, f"device-route frames vs the host rebuild's: differing pixels per frame "
+              f"{differ} of {W * H}; the last frame's largest difference {diff.max()}, "
+              f"{int((diff > 1).sum())} pixels off by more than 1")
+    # the refit keeps the first TLAS topology and computes the instance
+    # inverses on the card, so hits agree but for exact-t ties and
+    # last-ulp t; a differing pixel is counted and printed
+    assert max(differ) <= 1e-3 * W * H, f"motion frames differ on {max(differ)} pixels"
+
+    # the device refit alone
+    mo = dev_be._motion
+    mats = dev_be._scene_dev.inst_matrix.clone()
+    refit_ms = cuda_ms(lambda: tb.refit_device.instance_motion_update(
+        dev_be._scene_dev, mo["plan"], mats, mo["lmin"], mo["lmax"], mo["live"]), 5)
+    log(card, f"instance_motion_update alone: {refit_ms:.3f} ms "
+              f"({mo['plan'].passes_shape.shape[0]} Jacobi sweeps, eager)")
+    return dict(sync_ms=sync_ms, differ=differ, refit_ms=refit_ms)
+
+
+def phase12c(card, dev, settings):
+    """The device TLAS build: one motion sync of the instance-heavy scene
+    with device_motion=False, at phase 8's instance count and at one whose
+    Morton tree fits the host collapse's padded rows; K1 on the 1080p
+    primaries over the device-built tree and over the host collapse."""
+    import rfw_tpu_torch.render.torch_backend as tb
+    from rfw_tpu_torch.accel.tlas_device import tlas8_node_count
+    from rfw_tpu_torch.backend import InstancesView3D
+    from rfw_tpu_torch.convert import to_tensor
+    from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.render.torch_backend import TorchBackend
+    from rfw_tpu_torch.render.wavefront import camera_rays_c
+    from rfw_tpu_torch.scenes import build_heavy_scene
+
+    out = {}
+    for n_req in TLAS_COUNTS:
+        scene_np, _, _, _, camera, parts = build_heavy_scene(SEED + 1, n_req, views=True)
+        be = TorchBackend(W, H, dataclasses.replace(settings, device_motion=False))
+        feed_flagship(be, parts)
+        n_inst = int((be._scene_host.inst_mesh >= 0).sum())
+        meshes = {slot: mesh for slot, mesh, _ in parts["meshes"]}
+        rng = np.random.default_rng(SEED + 13)
+        moved = []
+        for slot, m in parts["instances"]:
+            m = m.copy()
+            m[:, :3, 3] += rng.uniform(-0.2, 0.2, (m.shape[0], 3)).astype(np.float32)
+            moved.append((slot, InstancesView3D(
+                matrices=m, skin_ids=np.full(m.shape[0], -1, np.int32),
+                changed=np.ones(m.shape[0], bool), local_aabb_min=meshes[slot].aabb_min,
+                local_aabb_max=meshes[slot].aabb_max)))
+        calls = Counter()
+        real = tb.build_tlas8_device
+
+        def counted(*a, **k):
+            calls["n"] += 1
+            return real(*a, **k)
+
+        be.set_3d_instances(moved)
+        with patched(tb, build_tlas8_device=counted):
+            be.synchronize()
+        sync_ms = be.stats["sync_ms"].last()
+        rows, need = be._scene_host.tlas8_box.shape[0], tlas8_node_count(n_inst)
+        log(card, f"phase 12 (c) {n_inst} instances: motion sync {sync_ms:.2f} ms (host SAH "
+                  f"rebuild), the Morton tree needs {need} supernodes, the host collapse's "
+                  f"padded arrays hold {rows}: build_tlas8_device ran {calls['n']} time(s)")
+        assert calls["n"] == (1 if need <= rows else 0)
+        if not calls["n"]:
+            out[n_inst] = dict(sync_ms=sync_ms, device_tlas=False)
+            continue
+        # the same scene with the host collapse's tlas8 mirror
+        sd = be._scene_dev
+        host8 = sd._replace(**{f: to_tensor(getattr(be._scene_host, f), dev)
+                               for f in ("tlas8_box", "tlas8_code", "tlas8_cnt")})
+        view = torch.from_numpy(camera.get_view(W, H).as_array()).to(dev)
+        o, d = camera_rays_c(view, W, H, jitter=(
+            torch.full((W * H, 2), 0.5, device=dev), torch.zeros((W * H, 2), device=dev)))
+        o, d = torch.stack(o, 1), torch.stack(d, 1)
+        hits = {}
+        for name, s in (("device tree", sd), ("host collapse", host8)):
+            ps = tr.prepare_scene(s)
+            hits[name], ms = timed(lambda: tr.closest_hit(ps, o, d))
+            log(card, f"K1 on the {W}x{H} primaries over the {name}: {ms:.4f} ms")
+        a, b = hits["device tree"], hits["host collapse"]
+        mask_a, mask_b = a.prim >= 0, b.prim >= 0
+        assert torch.equal(mask_a, mask_b), "hit masks differ between the two TLAS trees"
+        assert torch.equal(bits(a.t), bits(b.t)), "t differs between the two TLAS trees"
+        # t is identical on every ray, so a ray whose ids differ hit two
+        # triangles at the same t: an exact-t tie that the walk order breaks
+        ties = int(((a.prim != b.prim) | (a.inst != b.inst)).sum())
+        log(card, f"K1 over the device-built tree vs the host collapse: hit masks and t "
+                  f"identical ({int(mask_a.sum())} hits), ids differ on {ties} rays (exact-t "
+                  f"ties: t identical)")
+        out[n_inst] = dict(sync_ms=sync_ms, device_tlas=True, ties=ties)
+        del be, sd, host8
+    return out
+
+
+def phase12d(card, dev, scene, mats, atlas, lights, view, base):
+    """threefry on the card: one 1080p sample with sampler="random", every
+    uniform it drew against the same call on the CPU; ms per sample against
+    "sobol"."""
+    from rfw_tpu_torch.render import threefry
+    from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
+
+    cfg_r = RenderConfig(**{**base, "two_phase": "auto", "sampler": "random"})
+    cfg_s = dataclasses.replace(cfg_r, sampler="sobol")
+    key = threefry.fold_in(threefry.PRNGKey(42), 0)
+    drawn = []
+    real = threefry.uniform
+
+    def recorded(k, shape, device=None):
+        u = real(k, shape, device=device)
+        drawn.append((k.clone(), tuple(shape), u.cpu()))
+        return u
+
+    with patched(threefry, uniform=recorded):
+        res = render_sample(scene, mats, atlas, lights, view, W, H, cfg_r, key=key)
+    torch.cuda.synchronize()
+    for k, shape, u in drawn:
+        assert u.device.type == "cpu" and torch.equal(u, real(k, shape)), \
+            f"threefry uniform {shape} differs between the card and the CPU"
+    n = sum(u.numel() for _, _, u in drawn)
+    log(card, f"phase 12 (d): one {W}x{H} sample with sampler=\"random\" drew {len(drawn)} "
+              f"uniform calls ({n} floats) on the card, each identical to the same call on "
+              f"the CPU")
+    rad = res.radiance
+    assert bool(torch.isfinite(rad).all()) and rad.mean().item() > 0
+    times = defaultdict(list)
+    means = {}
+    for label, cfg in (("sobol", cfg_s), ("random", cfg_r), ("random", cfg_r),
+                       ("sobol", cfg_s)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = render_sample(scene, mats, atlas, lights, view, W, H, cfg, sample_index=1,
+                          key=key).radiance
+        torch.cuda.synchronize()
+        times[label].append((time.perf_counter() - t0) * 1e3)
+        means[label] = r.mean().item()
+    u_ms = cuda_ms(lambda: real(key, (W * H, 3), device=dev), 10)
+    log(card, f"ms per sample, in turns sobol, random, random, sobol: sobol "
+              f"{', '.join(f'{x:.2f}' for x in times['sobol'])}, random "
+              f"{', '.join(f'{x:.2f}' for x in times['random'])}; mean radiance sobol "
+              f"{means['sobol']:.6f}, random {means['random']:.6f}; one threefry uniform of "
+              f"({W * H}, 3) {u_ms:.4f} ms")
+    assert abs(means["random"] - means["sobol"]) <= 0.05 * means["sobol"], \
+        "the random and sobol samples disagree on the mean radiance"
+    return dict(times=times, uniform_ms=u_ms)
+
+
+def phase12(card, dev, parts, camera, scene, mats, atlas, lights, view, base):
+    """Dynamics and the random sampler on the card (TorchSettings' defaults:
+    device_dynamics, device_motion). Returns the first dynamic frame's
+    launches."""
+    from rfw_tpu_torch.render.torch_backend import TorchSettings
+
+    t_phase = time.perf_counter()
+    settings = TorchSettings(samples_per_frame=1, max_bounces=BOUNCES, clamp=20.0,
+                             sky_intensity=0.35, sampler="sobol")
+    a = phase12a(card, parts, camera, settings)
+    phase12b(card, parts, camera, settings)
+    phase12c(card, dev, settings)
+    phase12d(card, dev, scene, mats, atlas, lights, view, base)
+    log(card, f"phase 12: {time.perf_counter() - t_phase:.2f} s")
+    return a["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -2209,6 +2686,10 @@ def main() -> int:
     # ---- 11. the app on the card: Instance, Scene, run_windowed
     app_launches = phase11(card, dev, parts, scene_np, camera)
 
+    # ---- 12. dynamics and the random sampler
+    dyn_launches = phase12(card, dev, parts, camera, scene, mats, atlas, lights, view_full,
+                           base)
+
     def row(name, source, replaces, launches, rows, extra_err=(), **extra):
         b = max(rows, key=lambda r: r["bound_ms"]) if rows else None
         if rows and all("bound_ms_plain_counts" in r for r in rows):  # the walks K1-K5
@@ -2252,12 +2733,15 @@ def main() -> int:
         row("U2 ubench_grid", "rfw_tpu_torch/csrc/ubench_grid.cu", "tools/ubench_grid.py:60",
             ubench["launches"]["grid"], ubench["U2"]),
     ]
-    # each kernel's launches in phase 11's counted run, the app's first frame
+    # each kernel's launches in phase 11's counted run, the app's first
+    # frame, and in phase 12's, the first dynamic frame
     app_kinds = {"K1": ("closest",), "K2": ("occluded",), "K3": ("items_closest",),
                  "K5": ("items_occluded",), "K4": ("entries",),
                  "K6": ("dense_closest", "dense_occluded"), "U1": ("leaf",), "U2": ("grid",)}
     for k in kernels:
-        k["launches_app"] = sum(app_launches[kind] for kind in app_kinds[k["name"].split()[0]])
+        kinds = app_kinds[k["name"].split()[0]]
+        k["launches_app"] = sum(app_launches[kind] for kind in kinds)
+        k["launches_dynamics"] = sum(dyn_launches[kind] for kind in kinds)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

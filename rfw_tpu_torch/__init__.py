@@ -48,14 +48,28 @@ its imports and `TorchBackend` in place of `TpuBackend`:
   render/torch_backend.py                     TorchBackend: the Backend
                                                 contract over the path tracer
                                                 (syncs, progressive film, AOV
-                                                modes, host skinning/morphs,
-                                                overlay)
+                                                modes, host and device
+                                                skinning/morphs, device
+                                                instance motion, overlay)
+  render/refit_device.py                      the device dynamics: LBS,
+                                                morphs and the BVH refit of
+                                                deformed units
+                                                (apply_dynamic), the TLAS
+                                                refit of moving instances
+                                                (instance_motion_update), and
+                                                their host-built plans
+  accel/tlas_device.py, accel/lbvh.py         the device 8-ary TLAS build
+                                                over Morton-sorted instances;
+                                                Morton codes
   scenes.py                                   seeded procedural scenes (the
                                               flagship-scale and the
                                               instance-heavy one)
   render/{wavefront,disney,sampler,atlas,     the wavefront path tracer (torch)
           intersect,film,fxaa}.py               and its film: tonemap with the
                                                 FXAA post-pass
+  render/threefry.py                          jax.random's threefry (keys,
+                                                split, fold_in, uniform) bit
+                                                for bit: the random sampler
   render/twophase.py                          two-phase phase A by a dense
                                               (R, I) scan of instance boxes
   ops/traverse.py + csrc/traverse.cu          K1/K2: two-level BVH traversal

@@ -1,5 +1,5 @@
-"""Morton codes for the bounce-ray sort key (the part of
-`rfw_tpu/accel/lbvh.py` the renderer uses).
+"""Morton codes for the bounce-ray sort key and the device TLAS build (the
+part of `rfw_tpu/accel/lbvh.py` the renderer uses).
 
 torch has few uint32 operations, so the codes are computed in int64; every
 intermediate stays below 2**32 and the results equal the uint32 ones.
@@ -17,6 +17,14 @@ def _expand_bits(v: torch.Tensor) -> torch.Tensor:
     v = (v * 0x00000011) & 0xC30C30C3
     v = (v * 0x00000005) & 0x49249249
     return v
+
+
+def morton_codes(centroids: torch.Tensor, scene_min: torch.Tensor,
+                 scene_max: torch.Tensor) -> torch.Tensor:
+    """(n,3) centroids -> (n,) int64 30-bit Morton codes."""
+    return morton_codes_c(
+        (centroids[:, 0], centroids[:, 1], centroids[:, 2]),
+        scene_min, scene_max)
 
 
 def morton_codes_c(c, scene_min: torch.Tensor, scene_max: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@
 The packed arenas (`TraceScene`, `DeviceMaterials`, `DeviceLights`,
 `TextureAtlas`) are the renderer's "weights". Each has its own upload, so
 that a backend uploads only what changed; `update_scene` re-uploads only
-the `TraceScene` fields whose host array changed. `from_numpy_scene`
+the `TraceScene` fields whose host array changed, and those a device refit
+rewrote. `from_numpy_scene`
 uploads all four. They accept the arenas as produced by this package's
 packers or by `rfw_tpu`'s (any object with the same field names whose
 fields convert with `np.asarray`), so the tests can feed the same arenas
@@ -54,14 +55,18 @@ def atlas_to_device(atlas, device="cuda") -> TextureAtlas:
         for f in TextureAtlas._fields])
 
 
-def update_scene(old_host, old_dev: TraceScene, new_host, device="cuda") -> TraceScene:
+def update_scene(old_host, old_dev: TraceScene, new_host, device="cuda",
+                 stale=()) -> TraceScene:
     """Equality-gated upload: a field keeps its device tensor when its host
-    array is unchanged (same shape, dtype and values); every other field
-    is uploaded."""
+    array is unchanged (same shape, dtype and values) and it is not named
+    in `stale`; every other field is uploaded. `stale` names the fields
+    whose device tensors no longer match `old_host` (a device refit rewrote
+    them), so the host comparison cannot vouch for them."""
     out = {}
     for f in TraceScene._fields:
         new, old = np.asarray(getattr(new_host, f)), np.asarray(getattr(old_host, f))
-        if old.shape == new.shape and old.dtype == new.dtype and np.array_equal(old, new):
+        if (f not in stale and old.shape == new.shape and old.dtype == new.dtype
+                and np.array_equal(old, new)):
             out[f] = getattr(old_dev, f)
         else:
             out[f] = to_tensor(new, device)

@@ -268,6 +268,7 @@ def pack_trace_scene(
     deformed_positions: Optional[dict] = None,
     built_blas_out: Optional[dict] = None,
     deformed_attrs: Optional[dict] = None,
+    mesh_ranges_out: Optional[dict] = None,
 ) -> TraceScene:
     """Build a TraceScene.
 
@@ -281,6 +282,10 @@ def pack_trace_scene(
     normals/tangents through the blended joint inverse-transpose).
     built_blas_out: optional dict filled with {slot: BvhNodes} for every
     BLAS built here — callers cache them to skip rebuilds next pack.
+    mesh_ranges_out: optional dict filled with {slot: {"tri"|"node"|"wide"|
+    "w8"|"vtx"|"inst": (lo, hi)}} arena slice ranges (pre-padding) — the
+    static metadata render.refit_device needs to build on-device refit
+    plans for skinned/morphed meshes.
     """
     deformed_positions = deformed_positions or {}
     deformed_attrs = deformed_attrs or {}
@@ -400,6 +405,14 @@ def pack_trace_scene(
         mesh_info[slot] = (node_offset, pos_mn.astype(np.float32), pos_mx.astype(np.float32),
                            wroot + wide_offset, wide8_offset)
         mesh_tri_spans[slot] = (tri_offset, tri_offset + gather.shape[0])
+        if mesh_ranges_out is not None:
+            mesh_ranges_out[slot] = {
+                "tri": (tri_offset, tri_offset + gather.shape[0]),
+                "node": (node_offset, node_offset + bvh.num_nodes),
+                "wide": (wide_offset, wide_offset + wf.shape[0]),
+                "w8": (wide8_offset, wide8_offset + b8.shape[0]),
+                "vtx": (vtx_offset, vtx_offset + pos.shape[0]),
+            }
         node_offset += bvh.num_nodes
         tri_offset += gather.shape[0]  # TREELET-aligned padded arena size
         vtx_offset += pos.shape[0]
@@ -434,6 +447,15 @@ def pack_trace_scene(
     else:
         inst_matrix = np.zeros((0, 4, 4), np.float32)
         inst_mesh = np.zeros(0, np.int32)
+    if mesh_ranges_out is not None:
+        lo = 0
+        for slot, mats in instances:
+            if slot not in mesh_info:
+                continue
+            n = np.asarray(mats).reshape(-1, 4, 4).shape[0]
+            if slot in mesh_ranges_out:
+                mesh_ranges_out[slot]["inst"] = (lo, lo + n)
+            lo += n
 
     n_inst = inst_matrix.shape[0]
     inst_inv = (
@@ -465,6 +487,11 @@ def pack_trace_scene(
         assert tlas_wroot == 0
         tlas8_box, tlas8_code, tlas8_cnt = build_widen(
             tlas, tlas=True, depth=depth8)
+        if mesh_ranges_out is not None:
+            mesh_ranges_out["__tlas__"] = {
+                "nodes": tlas.num_nodes, "inst": n_inst,
+                "w8": tlas8_box.shape[0],
+            }
     else:
         inst_wmin = np.zeros((0, 3), np.float32)
         inst_wmax = np.zeros((0, 3), np.float32)

@@ -6,28 +6,32 @@ Counterpart of `rfw_tpu/render/tpu_backend.py::TpuBackend`: the same
 (reference 'backends are dumb caches invalidated by dirty bits'):
 `set_*` stage host-side copies + dirty flags; `synchronize()` does the
 heavy lifting once per frame —
-  * CPU LBS skinning and morph targets for deformed meshes -> BLAS refit;
-  * BLAS (re)build for changed meshes, cached per mesh slot;
-  * `pack_trace_scene` -> an equality-gated upload of the packed arenas
-    (only fields whose host array changed are re-sent);
-  * instance-only motion -> `repack_instances` (host TLAS rebuild and its
-    8-wide collapse) -> upload of the TLAS and instance fields;
+  * a geometry change: host LBS skinning and morph targets for deformed
+    meshes, BLAS (re)build for changed meshes (cached per mesh slot) or
+    refit, `pack_trace_scene` -> an equality-gated upload of the packed
+    arenas (only fields whose host array changed, or that a device refit
+    rewrote, are re-sent), then the device refit plans of every deformed
+    unit (`render/refit_device.py`);
+  * a skin pose or morph-weight change with the same layout
+    (`device_dynamics`, the default): upload of the joint matrices and
+    morph weights, then `apply_dynamic` on the device (skin, morph, BVH
+    refit) — no repack, no arena upload;
+  * instance-only motion: with `device_motion` (the default, from
+    RFW_DEVICE_MOTION) and at least `motion_min_instances` instances,
+    upload of the matrices and `instance_motion_update` on the device (the
+    TLAS mirrors refit over the last host topology); else
+    `repack_instances` (host TLAS rebuild) -> upload of the TLAS and
+    instance fields, with the 8-wide TLAS built on the card by
+    `build_tlas8_device` from DEVICE_TLAS_MIN_INSTANCES instances up;
   * material block / texture atlas / light buffers upload on change, each
     alone.
 `render()` runs `samples_per_frame` progressive samples of
-`render_sample`, tonemaps on the device (FXAA optional), composites the 2D
-overlay on the host, and returns an (H, W, 4) uint8 frame. Progressive
-accumulation resets when the camera or the scene changes (reference
-RenderMode::Reset semantics, gpu-rt lib.rs:1690-1692).
-
-Not ported yet (ROADMAP queue A, item 4: dynamics): the on-device skin,
-morph and BVH refit (`TpuBackend._build_dynamic_plans`,
-`_apply_device_dynamics`), the on-device instance-motion refit
-(`_try_device_motion`) and the on-device TLAS build
-(`build_tlas8_device`). So skin and morph syncs take the full host repack
-and motion syncs `repack_instances` with the host TLAS collapse: the
-routes `TpuBackend` takes with `device_dynamics=False,
-device_motion=False`. `TorchSettings` refuses either switch.
+`render_sample` (keys `fold_in(PRNGKey(42), sample)` for the random
+sampler, as `TpuBackend` derives them), tonemaps on the device (FXAA
+optional), composites the 2D overlay on the host, and returns an
+(H, W, 4) uint8 frame. Progressive accumulation resets when the camera or
+the scene changes (reference RenderMode::Reset semantics, gpu-rt
+lib.rs:1690-1692).
 
 The backend runs on the card unless the caller names another device
 (`device="cpu"` runs the kernels' plain versions, as the tests do).
@@ -35,6 +39,7 @@ The backend runs on the card unless the caller names another device
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 
 from rfw_tpu_torch.accel.bvh_cpu import BvhNodes
+from rfw_tpu_torch.accel.tlas_device import build_tlas8_device, tlas8_node_count
 from rfw_tpu_torch.backend.contract import RenderMode, init_from_window_handle
 from rfw_tpu_torch.backend.lights import (
     AreaLightsView,
@@ -70,6 +76,7 @@ from rfw_tpu_torch.render import film as film_mod
 from rfw_tpu_torch.render.atlas import TextureAtlas, pack_atlas
 from rfw_tpu_torch.render.lights_pack import DeviceLights, pack_lights
 from rfw_tpu_torch.render.overlay import composite_overlay, rasterize_2d
+from rfw_tpu_torch.render import refit_device, threefry
 from rfw_tpu_torch.render.pack import TraceScene, pack_trace_scene, repack_instances
 from rfw_tpu_torch.render.wavefront import (
     RenderConfig, mat_feature_mask, render_sample, tex_kinds_mask,
@@ -78,18 +85,16 @@ from rfw_tpu_torch.utils import Averager, log
 
 _LOG = log.get("torch_backend")
 
-_NOT_PORTED = ("{} is not ported yet: the on-device dynamics (skin/morph refit, "
-               "instance-motion TLAS refit) wait for ROADMAP queue A, item 4 "
-               "(dynamics); leave it False")
+#: instance-count threshold for the on-device TLAS build in the
+#: instance-only host route (below it, the host SAH collapse is trivial
+#: and slightly higher quality)
+DEVICE_TLAS_MIN_INSTANCES = 64
 
 
 @dataclass
 class TorchSettings:
     """Runtime knobs (reference WgpuSettings, backends/wgpu/src/lib.rs:32-38):
-    `TpuSettings`'s fields and defaults, but for `device_dynamics` and
-    `device_motion`, which default to False and raise when set, and
-    `motion_rebuild_every`/`motion_min_instances`, which only the device
-    motion path reads and which come with it (see the module docstring)."""
+    `TpuSettings`'s fields and defaults."""
 
     samples_per_frame: int = 1
     max_bounces: int = 3
@@ -98,17 +103,26 @@ class TorchSettings:
     exposure: float = 1.0
     tonemap: str = "aces"
     enable_skinning: bool = True
-    device_dynamics: bool = False  # skin/morph + BVH refit on the device
-    sampler: str = "sobol"  # "sobol" (low-discrepancy) | "random"
+    device_dynamics: bool = True  # skin/morph + BVH refit on the device per
+    #   frame (render/refit_device.py): a pose sync uploads joint matrices
+    #   and morph weights instead of repacking and re-uploading arenas.
+    #   Off -> the host repack (LBS + BLAS refit on the host)
+    sampler: str = "sobol"  # "sobol" (low-discrepancy) | "random" (threefry)
     fxaa: bool = False  # FXAA post-pass on the tonemapped frame (reference
     #   deferred_fxaa.frag)
     pixel_center: bool = False  # deterministic pixel-center primaries
-    device_motion: bool = False  # instance-motion TLAS refit on the device
-
-    def __post_init__(self) -> None:
-        for name in ("device_dynamics", "device_motion"):
-            if getattr(self, name):
-                raise NotImplementedError(_NOT_PORTED.format(name))
+    device_motion: bool = os.environ.get("RFW_DEVICE_MOTION", "1") != "0"
+    #   instance-motion-only syncs refit every TLAS mirror on the device
+    #   (refit_device.instance_motion_update): one matrix upload a frame,
+    #   no host TLAS repack (reference gpu-rt rebuilds the TLAS on the host
+    #   every synchronize, backends/gpu-rt/src/lib.rs:1570-1581). Off ->
+    #   the host SAH rebuild
+    motion_rebuild_every: int = 0  # >0: every Nth motion sync takes the
+    #   host SAH rebuild to refresh the TLAS topology (the refit keeps
+    #   boxes valid over the first topology). 0 = never
+    motion_min_instances: int = 64  # below this instance count motion
+    #   syncs take the host rebuild, which also refreshes the topology.
+    #   0 = always the device route
 
 
 def _default_device() -> torch.device:
@@ -117,6 +131,12 @@ def _default_device() -> torch.device:
             "TorchBackend runs on a CUDA device and none is available; pass "
             "device='cpu' to run the plain versions on the host")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def _on_card(device: torch.device) -> bool:
+    """The device TLAS build's gate (`TpuBackend` builds it off the CPU
+    backend only)."""
+    return device.type != "cpu"
 
 
 def _mesh_from_view(v: MeshView3D) -> Mesh3D:
@@ -305,12 +325,23 @@ class TorchBackend:
         self._tex_dirty = True
         self._light_dirty = True
         self._skin_dirty: set = set()
-        self._morph_dirty: set = set()  # morph-weight-only changes
-        #   (same grouping): a full repack until the device dynamics land
+        self._morph_dirty: set = set()  # morph-weight-only changes (same
+        #   grouping) for the device dynamic route; weight changes with
+        #   count/topology changes still raise _geo_dirty
 
+        # device dynamic-geometry state (render/refit_device.py): the
+        # deform units, their device plans and the TLAS plan, or None
+        self._dyn = None
+        # device instance-motion state: the armed static inputs of the
+        # instance_motion_update route (_try_device_motion), or None
+        self._motion = None
+        self._motion_syncs = 0  # device motion syncs since the last host rebuild
         self._group_sig: Dict[int, tuple] = {}  # per-slot grouping pattern
         #   of the last pack (_instance_layout); a pattern change forces a
         #   full repack
+        self._dev_stale: set = set()  # TraceScene fields a device refit
+        #   rewrote; the next host pack uploads them whatever the host
+        #   comparison says
 
         # device state
         self._scene_dev: Optional[TraceScene] = None
@@ -374,7 +405,9 @@ class TorchBackend:
                         mv, v, self.settings.enable_skinning)
                     pat = _pattern(_group_keys(sids, wrows, v.count))
                 if pat is not None and pat == self._group_sig.get(i):
-                    # weight-only deformation, same grouping
+                    # weight-only deformation, same grouping: the device
+                    # dynamic route handles it without a repack (or
+                    # synchronize repacks if no plan covers the slot)
                     self._morph_dirty.add(i)
                     if moved:
                         self._inst_dirty = True
@@ -436,7 +469,32 @@ class TorchBackend:
             m.has_skin for m in self._meshes.values()
         ) and bool(self._skin_dirty)
         morph_dirty = bool(self._morph_dirty)
-        if self._geo_dirty or skinned_dirty or morph_dirty:
+        # device dynamic route: skins/morphs changed, the geometry layout
+        # did not, and the last pack built refit plans covering every unit
+        dyn_ok = (
+            self._dyn is not None
+            and self.settings.device_dynamics
+            and not self._geo_dirty
+            and self._morph_dirty <= self._dyn["slots"]
+        )
+        # pure instance motion also re-runs the device refit when plans
+        # exist: the host instance repack only knows REST local AABBs, so
+        # without the refit a posed unit's TLAS boxes would snap back to
+        # the rest pose
+        if (skinned_dirty or morph_dirty or self._inst_dirty) and dyn_ok:
+            dyn_before = self._dyn
+            if self._inst_dirty and self._scene_host is not None:
+                # a grouping drift makes _sync_instances fall back to a full
+                # _rebuild_scene, which replaces self._dyn and bakes the
+                # poses on the host: refit only if the plans are current
+                self._sync_instances()
+            if self._dyn is not None and self._dyn is dyn_before:
+                self._apply_device_dynamics()
+            self._inst_dirty = False
+            self._skin_dirty.clear()
+            self._morph_dirty.clear()
+            self._reset_film()
+        elif self._geo_dirty or skinned_dirty or morph_dirty:
             self._rebuild_scene()
             self._geo_dirty = False
             self._inst_dirty = False
@@ -474,14 +532,112 @@ class TorchBackend:
             # set_3d_instances flags _geo_dirty first) -> full repack
             self._rebuild_scene()
             return
+        ps_to_slot = dict(pack_meshes)
         meshes_info = [
             (ps, self._meshes[slot].aabb_min, self._meshes[slot].aabb_max)
             for ps, slot in pack_meshes
         ]
+        if self._try_device_motion(meshes_info, instances):
+            return
         new_host = repack_instances(self._scene_host, meshes_info, instances)
-        self._scene_dev = self._scene_dev._replace(**{
-            f: to_tensor(getattr(new_host, f), self.device) for f in _INSTANCE_FIELDS})
+        # device TLAS: for large instance pools on the card, the 8-wide
+        # TLAS is built there as a complete 8-ary Morton tree instead of
+        # uploading the host collapse (the other TLAS fields still upload).
+        # Only the real prefix of the capacity-padded instance arenas
+        # (inst_mesh >= 0) enters the build.
+        n_inst = int((new_host.inst_mesh >= 0).sum())
+        use_device_tlas = (
+            _on_card(self.device)
+            and n_inst >= DEVICE_TLAS_MIN_INSTANCES
+            and tlas8_node_count(n_inst) <= new_host.tlas8_box.shape[0]
+            # with device dynamics the refit plan refits tlas8 boxes over
+            # the HOST topology, which the Morton tree would not match
+            and self._dyn is None
+        )
+        fields = [f for f in _INSTANCE_FIELDS if not (
+            use_device_tlas and f in ("tlas8_box", "tlas8_code", "tlas8_cnt"))]
+        changed = {f: to_tensor(getattr(new_host, f), self.device) for f in fields}
+        if use_device_tlas:
+            def local(attr):
+                return to_tensor(np.stack([
+                    getattr(self._meshes[ps_to_slot.get(int(m), int(m))], attr)
+                    for m in new_host.inst_mesh[:n_inst]]), self.device)
+
+            (changed["tlas8_box"], changed["tlas8_code"],
+             changed["tlas8_cnt"]) = build_tlas8_device(
+                changed["inst_matrix"][:n_inst], local("aabb_min"), local("aabb_max"),
+                pad_nodes=int(new_host.tlas8_box.shape[0]))
+        self._scene_dev = self._scene_dev._replace(**changed)
         self._scene_host = new_host
+        self._motion_syncs = 0  # the host rebuild refreshed the TLAS topology
+        if self._dyn is not None:
+            # the instance set / TLAS topology changed: rebuild the refit
+            # plan's TLAS schedule from the new host arrays
+            prev = self._dyn["tlas_plan"].passes_shape.shape[0]
+            self._dyn["tlas_plan"] = refit_device.plan_to_device(
+                refit_device.build_tlas_plan(new_host, min_passes=prev), self.device)
+
+    def _try_device_motion(self, meshes_info, instances) -> bool:
+        """Instance-motion device route: when only matrices changed (the
+        same instance set and layout as the packed arenas), refit every
+        TLAS mirror on the device with `refit_device.instance_motion_update`
+        — one (Icap,4,4) upload a frame, no host TLAS work. Returns False
+        to fall back to the host SAH rebuild (which refreshes topology)."""
+        base = self._scene_host
+        if (not self.settings.device_motion or self._scene_dev is None
+                or base is None):
+            return False
+        every = self.settings.motion_rebuild_every
+        if every > 0 and self._motion_syncs + 1 >= every:
+            return False  # periodic host rebuild refreshes the topology
+        # mirror repack_instances' row layout: rows ordered by the
+        # instances sequence, slots unknown to the base pack skipped
+        known = {int(m) for m in base.inst_mesh if m >= 0}
+        info = {s: (mn, mx) for s, mn, mx in meshes_info}
+        mats_list, mesh_rows = [], []
+        for slot, mats in instances:
+            if slot not in known or slot not in info:
+                continue
+            m = np.asarray(mats, np.float32).reshape(-1, 4, 4)
+            mats_list.append(m)
+            mesh_rows.append(np.full(m.shape[0], slot, np.int32))
+        if not mats_list:
+            return False
+        inst_mesh = np.concatenate(mesh_rows)
+        n = inst_mesh.shape[0]
+        if n < self.settings.motion_min_instances:
+            return False  # the host SAH rebuild is faster below the gate
+        icap = base.inst_matrix.shape[0]
+        if n > icap or not np.array_equal(base.inst_mesh[:n], inst_mesh) \
+                or not (base.inst_mesh[n:] < 0).all():
+            self._motion = None  # the instance set changed: host repack
+            return False
+
+        key = inst_mesh.tobytes()
+        if self._motion is None or self._motion["key"] != key:
+            # arm: static per-layout inputs (plan, local AABBs, live mask)
+            plan = (self._dyn["tlas_plan"] if self._dyn is not None
+                    else refit_device.plan_to_device(
+                        refit_device.build_tlas_plan(base), self.device))
+            lmin = np.zeros((icap, 3), np.float32)
+            lmax = np.zeros((icap, 3), np.float32)
+            lmin[:n] = np.stack([info[int(s)][0] for s in inst_mesh])
+            lmax[:n] = np.stack([info[int(s)][1] for s in inst_mesh])
+            self._motion = {
+                "key": key,
+                "plan": plan,
+                "lmin": to_tensor(lmin, self.device),
+                "lmax": to_tensor(lmax, self.device),
+                "live": to_tensor(np.arange(icap) < n, self.device),
+            }
+        pad = np.broadcast_to(np.eye(4, dtype=np.float32), (icap - n, 4, 4))
+        mats = np.concatenate([np.concatenate(mats_list), pad])
+        self._scene_dev = refit_device.instance_motion_update(
+            self._scene_dev, self._motion["plan"], to_tensor(mats, self.device),
+            self._motion["lmin"], self._motion["lmax"], self._motion["live"])
+        self._dev_stale |= set(refit_device.MOTION_FIELDS)
+        self._motion_syncs += 1
+        return True
 
     def _sync_textures(self) -> None:
         tex_list: List = []
@@ -550,11 +706,12 @@ class TorchBackend:
         sky_tex = (torch.tensor([self._sky_tex_id], dtype=torch.int32, device=dev)
                    if self._sky_tex_id >= 0 else None)
         last = None
+        key = threefry.PRNGKey(42)
         for s in range(self.settings.samples_per_frame):
             res = render_sample(
                 self._scene_dev, self._mats_dev, self._atlas_dev, self._lights_dev,
                 view_dev, self.width, self.height, cfg, sky_tex=sky_tex,
-                sample_index=self._spp + s,
+                sample_index=self._spp + s, key=threefry.fold_in(key, self._spp + s),
             )
             film_mod.add_sample(self._film, res.radiance)
             last = res
@@ -733,9 +890,11 @@ class TorchBackend:
                         deformed_attrs[ps] = d[1]
             # groups share the real slot's rest-topology BLAS
             meshes.append((ps, _mesh_from_view(mv), self._blas_cache.get(slot)))
+        ranges: Dict = {}
         scene = pack_trace_scene(
             meshes, instances, deformed_positions=deformed,
             deformed_attrs=deformed_attrs, built_blas_out=blas_out,
+            mesh_ranges_out=ranges,
         )
         # write fresh BLAS builds back under their REAL slot (groups of
         # one mesh share the rest topology; first group's build wins)
@@ -743,17 +902,90 @@ class TorchBackend:
         for ps, bvh in blas_out.items():
             self._blas_cache.setdefault(ps_to_slot.get(ps, ps), bvh)
         # equality-gated upload: a skinned rebuild leaves most arenas
-        # byte-identical; re-upload only fields that actually changed
+        # byte-identical; re-upload only fields that actually changed, or
+        # that a device refit rewrote since the last pack
         if self._scene_host is not None and self._scene_dev is not None:
             self._scene_dev = update_scene(
-                self._scene_host, self._scene_dev, scene, self.device)
+                self._scene_host, self._scene_dev, scene, self.device,
+                stale=self._dev_stale)
         else:
             self._scene_dev = scene_to_device(scene, self.device)
+        self._dev_stale.clear()
         self._scene_host = scene
+        self._motion = None  # arena capacities may have changed: re-arm
+        self._motion_syncs = 0
+        self._build_dynamic_plans(scene, ranges, units)
         _LOG.info(
             "scene packed: %d tris, %d instances", scene.num_triangles,
             scene.num_instances,
         )
+
+    def _build_dynamic_plans(self, scene: TraceScene, ranges: Dict,
+                             units: List[Dict]) -> None:
+        """Build the device refit plans (render/refit_device.py) of every
+        deform unit (one per distinct (mesh, skin, morph-weights) group,
+        `_instance_layout`), so later skin/morph updates skip the host
+        repack. Plans are static per arena layout; rebuilt with every full
+        pack."""
+        self._dyn = None
+        if not self.settings.device_dynamics:
+            return
+        plans, dyn_units = [], []
+        for u in units:
+            mv = self._meshes[u["slot"]]
+            if not (u["has_skin"] or mv.has_morphs):
+                continue  # rest-pose unit: nothing to refit
+            ps = u["pack_slot"]
+            if ps not in ranges or "inst" not in ranges[ps]:
+                continue
+            plan = refit_device.build_unit_plan(
+                scene, ranges[ps], mv.positions, mv.normals, mv.tangents,
+                mv.joints if u["has_skin"] else None,
+                mv.weights if u["has_skin"] else None,
+                mv.morph_targets if mv.has_morphs else None,
+                mv.morph_normals if mv.has_morphs else None,
+                mv.morph_tangents if mv.has_morphs else None,
+            )
+            lo, hi = ranges[ps]["inst"]
+            plan = plan._replace(inst_rows=np.arange(lo, hi, dtype=np.int32))
+            plans.append(refit_device.plan_to_device(plan, self.device))
+            dyn_units.append(u)
+        if not plans:
+            return
+        self._dyn = {
+            "slots": {u["slot"] for u in dyn_units},
+            "units": dyn_units,
+            "plans": tuple(plans),
+            "tlas_plan": refit_device.plan_to_device(
+                refit_device.build_tlas_plan(scene), self.device),
+        }
+
+    def _apply_device_dynamics(self) -> None:
+        """Per-frame dynamic sync: upload the joint matrices and morph
+        weights (KBs) and run the device skin + refit."""
+        poses, morphs = [], []
+        for u in self._dyn["units"]:
+            jm = None
+            if u["has_skin"]:
+                jm = to_tensor(np.asarray(self._skins[u["sid"]].joint_matrices,
+                                          np.float32), self.device)
+            poses.append(jm)
+            mw = None
+            mv = self._meshes[u["slot"]]
+            if mv.has_morphs:
+                m = mv.morph_targets.shape[0]
+                w = self._instances[u["slot"]].morph_weights
+                if w is not None and w.shape[0]:
+                    row = min(u["w_row"], w.shape[0] - 1)
+                    mw = np.asarray(w[row, :m], np.float32)
+                else:
+                    mw = np.zeros((m,), np.float32)
+                mw = to_tensor(mw, self.device)
+            morphs.append(mw)
+        self._scene_dev = refit_device.apply_dynamic(
+            self._scene_dev, self._dyn["plans"], self._dyn["tlas_plan"],
+            poses, morphs)
+        self._dev_stale |= set(refit_device.UNIT_FIELDS + refit_device.TLAS_FIELDS)
 
     def _aov_frame(self, res, mode: RenderMode) -> np.ndarray:
         H, W = self.height, self.width

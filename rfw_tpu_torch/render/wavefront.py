@@ -1,8 +1,11 @@
 """Wavefront path-tracing integrator (torch).
 
-Counterpart of `rfw_tpu/render/wavefront.py`, with the Owen-scrambled Sobol
-sampler drawing every uniform. One call of `render_sample` traces one
-sample per pixel:
+Counterpart of `rfw_tpu/render/wavefront.py`. Its uniforms come from the
+Owen-scrambled Sobol sampler (`sampler="sobol"`, keyed by pixel id and
+sample index) or, as the JAX package's default `sampler="random"` draws
+them, from threefry keyed by the caller's `key` (`render/threefry.py`,
+bit for bit `jax.random`). One call of `render_sample` traces one sample
+per pixel:
 
   * vertex 0 is peeled: camera rays, closest hit, sky for misses, then
     shading of the hit lanes (sorted to a hit prefix when compaction is on),
@@ -13,8 +16,12 @@ sample per pixel:
   * radiance returns in pixel order through the carried pixel id `pid`.
 
 Every per-lane quantity is computed as in the JAX package, operation for
-operation; the lane order differs (sorts are not stable), and every result
-is keyed by `pid`, so images agree per pixel. Where the JAX package selects
+operation, and every result is keyed by `pid`, so images agree per pixel
+with the Sobol sampler whatever the lane order. The random sampler draws
+its uniforms per LANE, as the JAX package does, so the lane order decides
+which pixel takes which number: the sorts here are stable, as XLA's CPU
+sort is in practice (`lax.sort` promises no order among equal keys), and
+lanes whose sort keys tie keep their order. Where the JAX package selects
 among static prefix lengths on the device (`lax.switch`), this port reads
 the live count to the host with `.item()` and slices the prefix — the
 reference GPU renderer reads its queue counters back the same way.
@@ -61,6 +68,7 @@ from rfw_tpu_torch.render.disney import (
     v3_normalize, v3_scale, v3_stack, v3_sub, v3_where,
 )
 from rfw_tpu_torch.render.intersect import Hit, T_MAX
+from rfw_tpu_torch.render import threefry
 from rfw_tpu_torch.render.lights_pack import DeviceLights
 from rfw_tpu_torch.render.sampler import sample_slot
 
@@ -105,9 +113,9 @@ def _fetch_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 class RenderConfig:
     """Integrator settings, with the JAX package's fields and defaults.
 
-    Ported here: sampler="sobol", two_phase "auto"/"on"/"off", traversal
-    "auto" or "lockstep". The JAX default sampler="random" raises
-    NotImplementedError in `render_sample` until it is ported."""
+    Ported here: sampler "random" (threefry, needs `key`) or "sobol"
+    (needs `sample_index`), two_phase "auto"/"on"/"off", traversal "auto"
+    or "lockstep"."""
 
     max_bounces: int = 3
     clamp: float = 10.0
@@ -121,7 +129,9 @@ class RenderConfig:
     #   on CPU tensors) | "lockstep" (plain walk on any device)
     lanes: int = 256  # ray tile width: pixel-block swizzle and prefix grain
     pixel_center: bool = False  # deterministic pixel-center primaries
-    sampler: str = "random"  # only "sobol" is ported (needs sample_index)
+    sampler: str = "random"  # "random" (threefry, per-lane uniforms from
+    #   `key`) | "sobol" (Owen-scrambled Sobol keyed by pixel and
+    #   sample_index)
     tex_mask: int = 15  # bitmask of texture-map kinds present in the
     #   material set (1=diffuse 2=normal 4=metallic-roughness 8=emissive);
     #   tex_kinds_mask() computes it
@@ -155,14 +165,20 @@ class SampleResult(NamedTuple):
 # ------------------------------------------------------------------ camera
 def camera_rays_c(
     view: torch.Tensor, width: int, height: int, pixel_ids=None, jitter=None,
+    key=None,
 ) -> Tuple[Vec3C, Vec3C]:
     """Primary rays from the (24,) camera vector: dir = normalize(p1 +
     r*right + s*up - origin), origin jittered on a 9-bladed lens aperture
     when lens_size > 0. `jitter` = ((R,2) pixel jitter, (R,2) lens
-    uniforms). Returns (origin, dir) as Vec3C."""
+    uniforms); without it both are drawn from the threefry `key`, as the
+    JAX package draws them. Returns (origin, dir) as Vec3C."""
     if jitter is None:
-        raise NotImplementedError(
-            "random jitter (threefry) is not ported; pass jitter uniforms")
+        if key is None:
+            raise ValueError("camera_rays_c needs jitter uniforms or a key")
+        k1, k2 = threefry.split(key)
+        n = width * height
+        jitter = (threefry.uniform(k1, (n, 2), device=view.device),
+                  threefry.uniform(k2, (n, 2), device=view.device))
     pos = view[0:3]
     right = view[3:6]
     up = view[6:9]
@@ -647,15 +663,19 @@ def render_sample(
     config: RenderConfig = RenderConfig(),
     sky_tex=None,  # (1,) atlas texture id; None = constant sky
     sample_index=None,  # progressive sample index (sobol), int or tensor
+    key=None,  # threefry key ((2,) words, `threefry.PRNGKey`) for "random"
 ) -> SampleResult:
     """Trace one sample per pixel; returns radiance + first-hit AOVs in
-    pixel order. Counterpart of `rfw_tpu.render.wavefront.render_sample`
-    (without its `key` argument: the ported sampler needs no random key)."""
-    if config.sampler != "sobol":
-        raise NotImplementedError(
-            f"sampler={config.sampler!r} is not ported yet; use 'sobol'")
-    if sample_index is None:
-        raise ValueError("the sobol sampler needs sample_index")
+    pixel order. Counterpart of `rfw_tpu.render.wavefront.render_sample`,
+    with `key` a keyword (the JAX function takes it positionally). As
+    there, the Sobol sampler runs when `config.sampler == "sobol"` and a
+    `sample_index` is given; otherwise the random sampler, which needs
+    `key`."""
+    use_sobol = config.sampler == "sobol" and sample_index is not None
+    if not use_sobol and key is None:
+        raise ValueError(
+            f"sampler={config.sampler!r} without a sample_index draws from "
+            "threefry and needs a key")
     if config.two_phase not in ("auto", "on", "off"):
         raise ValueError(f"two_phase={config.two_phase!r}")
     if config.traversal == "auto":
@@ -694,8 +714,20 @@ def render_sample(
         pixel_ids = None
         pid = torch.arange(R, dtype=torch.int32, device=dev)
 
-    def uniforms(slot, nu, pid_s):
-        return sample_slot(sample_index, pid_s, slot, nu)
+    if not use_sobol:
+        k_cam, k_loop = threefry.split(key)
+    vertex_keys = {}
+
+    def uniforms(slot, nu, pid_s, depth=0, sub=0):
+        """(n, nu) uniforms: Sobol `slot` per pixel, or threefry per lane
+        from fold_in(fold_in(k_loop, depth), sub) (the JAX package's `kd`
+        of vertex `depth` and its use `sub`)."""
+        if use_sobol:
+            return sample_slot(sample_index, pid_s, slot, nu)
+        if depth not in vertex_keys:
+            vertex_keys[depth] = threefry.fold_in(k_loop, depth)
+        return threefry.uniform(threefry.fold_in(vertex_keys[depth], sub),
+                                (pid_s.shape[0], nu), device=dev)
 
     if config.pixel_center:
         ray_o, ray_d = camera_rays_c(
@@ -703,10 +735,12 @@ def render_sample(
             jitter=(torch.full((R, 2), 0.5, dtype=f32, device=dev),
                     torch.zeros((R, 2), dtype=f32, device=dev)),
         )
-    else:
+    elif use_sobol:
         ray_o, ray_d = camera_rays_c(
             view, width, height, pixel_ids,
             jitter=(uniforms(0, 2, pid), uniforms(1, 2, pid)))
+    else:
+        ray_o, ray_d = camera_rays_c(view, width, height, pixel_ids, key=k_cam)
 
     total_lights = (
         lights.n_point[0] + lights.n_spot[0] + lights.n_dir[0] + lights.n_area[0]
@@ -782,7 +816,7 @@ def render_sample(
         elif first:
             aov_ao = torch.ones(n, dtype=f32, device=dev)
             if config.ao_aov:
-                u_ao = uniforms(4, 3, st.pid)
+                u_ao = uniforms(4, 3, st.pid, depth, 7)
                 wi_ao = disney.to_world_c(
                     basis["tan"], basis["bitan"], basis["ns"],
                     disney._sample_cosine_c(u_ao[:, 0], u_ao[:, 1]),
@@ -855,7 +889,7 @@ def render_sample(
         wo = disney.to_local_c(tan, bitan, ns, v3_neg(st.ray_d))
 
         # ---- NEE ---------------------------------------------------------
-        u_l = uniforms(2 + depth * 3, 3, st.pid)
+        u_l = uniforms(2 + depth * 3, 3, st.pid, depth, 1)
         (wi_l, dist_l, rad_over_pdf, is_delta, pdf_nee_sa,
          pick_norm) = _sample_light_c(lights, pos, u_l[:, 0], u_l[:, 1],
                                       u_l[:, 2], ns)
@@ -893,7 +927,7 @@ def render_sample(
                 alive=torch.zeros_like(alive),
             ), aovs
 
-        u_b = uniforms(3 + depth * 3, 3, st.pid)
+        u_b = uniforms(3 + depth * 3, 3, st.pid, depth, 2)
         wi_b, f_b, pdf_b, delta_b = disney.disney_sample_c(
             params, wo, u_b[:, 0], u_b[:, 1], u_b[:, 2], config.mat_features)
         # transmission samples leave through the lower hemisphere: |cos|
@@ -938,7 +972,7 @@ def render_sample(
         cell = morton_codes_c(st.ray_o, scene_mn, scene_mx)
         skey = octant * (1 << 27) + (cell >> 5)
         skey = torch.where(st.alive, skey, 1 << 30)
-        perm = torch.sort(skey).indices
+        perm = torch.sort(skey, stable=True).indices
         return _tmap(lambda a: a[perm], st)
 
     def _trace_and_shade(st: _PathState, depth: int, last: bool,
@@ -991,7 +1025,7 @@ def render_sample(
         # shade only the hit lanes: sort by (hit?, prim block), then shade
         # the hit prefix at the smallest covering length
         key0 = torch.where(found0, hit0.prim >> 4, 1 << 30)
-        perm = torch.sort(key0).indices
+        perm = torch.sort(key0, stable=True).indices
         hit0, rad0, ray_o, ray_d, pid = _tmap(
             lambda a: a[perm], (hit0, rad0, ray_o, ray_d, pid))
         st = _mk_state(rad0, hit0.prim >= 0, ray_o, ray_d, pid, R)

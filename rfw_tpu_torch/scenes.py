@@ -115,12 +115,15 @@ def build_scene(seed: int, views: bool = False):
     return out
 
 
-def build_heavy_scene(seed: int, n_inst: int):
+def build_heavy_scene(seed: int, n_inst: int, views: bool = False):
     """An instance-heavy scene: n_inst instances on a square field, a mix
     of 20,480-triangle spheres (their BLAS walk) and small meshes whose
     treelet span is at most 64 (icospheres of quality 1 and 2, cubes: the
     dense items tier), a floor, an area lamp and a sun; packed by the
-    port's own packers."""
+    port's own packers. Returns build_scene's first five parts; with
+    views=True also a dict of the meshes and instances as
+    `pack_trace_scene` took them, the `Materials`, and the sun and
+    area-light views."""
     from rfw_tpu_torch.backend.lights import (
         DirectionalLightsView, PointLightsView, SpotLightsView,
     )
@@ -185,4 +188,8 @@ def build_heavy_scene(seed: int, n_inst: int):
     camera = Camera3D(fov=60).look_at(np.array([half * 0.9, half * 0.55, half * 0.9], np.float32),
                                       np.array([0.0, 0.0, 0.0], np.float32))
     atlas = pack_atlas([t for _, t in mats.textures])
-    return scene, mats.to_device(), lights, atlas, camera
+    out = (scene, mats.to_device(), lights, atlas, camera)
+    if views:
+        return out + (dict(meshes=meshes, instances=instances, materials=mats, sun=sun,
+                           area=area),)
+    return out

@@ -9,7 +9,10 @@ deform groups), built through rfw_tpu's Scene; its sync stream recorded and
 replayed into both backends as tests/test_torch_backend.py does. Both take
 the host route (the reference with device_dynamics=False,
 device_motion=False): LBS and morphs on the host, then a full repack with
-a BLAS refit. Tolerances: the packed arenas (the deformed positions and the
+a BLAS refit. `TorchSettings` has `TpuSettings`' fields and defaults, and
+each device switch, on, takes its device route on the same scene (the
+device routes themselves are held in tests/test_torch_dynamics_backend.py
+and tests/test_torch_device_motion.py). Tolerances: the packed arenas (the deformed positions and the
 baked shading attributes among them) and the host skinning bit-identical;
 frames within 1 in every channel on at least 99% of pixels.
 """
@@ -278,19 +281,47 @@ def test_empty_scene_returns_zeros():
     assert not port.hdr_frame().any()
 
 
+def test_settings_match_tpu_settings():
+    """TorchSettings has TpuSettings' fields, in its order, with its
+    defaults (device_dynamics on, device_motion from RFW_DEVICE_MOTION, the
+    device motion knobs)."""
+    ref, port = dataclasses.fields(TpuSettings), dataclasses.fields(TorchSettings)
+    assert [f.name for f in port] == [f.name for f in ref]
+    assert dataclasses.asdict(TorchSettings()) == dataclasses.asdict(TpuSettings())
+    assert TorchSettings().device_dynamics and TorchSettings().motion_min_instances == 64
+
+
 @pytest.mark.parametrize("name", ["device_dynamics", "device_motion"])
-def test_device_dynamics_not_ported(name):
-    with pytest.raises(NotImplementedError, match="queue A, item 4"):
-        TorchSettings(**{name: True})
-
-
-@pytest.mark.parametrize("name", ["motion_rebuild_every", "motion_min_instances"])
-def test_device_motion_knobs_refused(name):
-    """TpuSettings' knobs that only the device motion path reads are not
-    fields until that path is ported: setting one fails loudly."""
-    assert name in {f.name for f in dataclasses.fields(TpuSettings)}
-    with pytest.raises(TypeError, match=name):
-        TorchSettings(**{name: 1})
+def test_device_switch_takes_its_device_route(pair, name):
+    """Each switch, on, takes its device route on the pair's scene: a skin
+    pose sync runs the device refit (no repack), a motion sync the device
+    TLAS refit (no host repack); off, both take the host repack."""
+    scene, sid, handles, rec, _, _ = pair
+    on = TorchBackend(W, H, TorchSettings(**{**SETTINGS, name: True,
+                                             "motion_min_instances": 0}), device="cpu")
+    off = TorchBackend(W, H, TorchSettings(**SETTINGS), device="cpu")
+    _torch_scene.sync_full(scene, rec)
+    stream = rec.take()
+    for be in (on, off):
+        _torch_scene.replay(stream, be, port=True)
+    if name == "device_dynamics":
+        assert on._dyn is not None and off._dyn is None
+        scene.skins.overwrite(sid[1], SkinView(joint_matrices=_pose(-45.0)))
+    else:
+        m = np.eye(4, dtype=np.float32)
+        m[:3, 3] = (2.3, 1.4, 0.2)
+        handles[1].set_matrix(m)
+        scene._instances_changed = True  # handle edits flag the list only
+    scene.synchronize(rec)
+    stream = rec.take()
+    before = {id(be): be._scene_host for be in (on, off)}
+    for be in (on, off):
+        _torch_scene.replay(stream, be, port=True)
+    assert on._scene_host is before[id(on)] and on._dev_stale
+    assert off._scene_host is not before[id(off)] and not off._dev_stale
+    view = CAM.get_view(W, H)
+    assert_frames_match(off.render(*_torch_scene.to_port((None, view))),
+                        on.render(*_torch_scene.to_port((None, view))))
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -44,8 +44,8 @@ print("imported", len(names))
 
 #: modules that must be among those imported with jax blocked (the
 #: backend layer and the host copies it needs, the scene and app layer,
-#: the loaders, the font plugin and the numpy oracle, beside the
-#: renderer's)
+#: the loaders, the font plugin and the numpy oracle, the device
+#: dynamics and the threefry sampler, beside the renderer's)
 MODULES = [
     "rfw_tpu_torch.backend.contract", "rfw_tpu_torch.backend.structs",
     "rfw_tpu_torch.backend.lights", "rfw_tpu_torch.models.mesh2d",
@@ -67,6 +67,8 @@ MODULES = [
     "rfw_tpu_torch.app.input", "rfw_tpu_torch.app.timer", "rfw_tpu_torch.app.instance",
     "rfw_tpu_torch.app.window", "rfw_tpu_torch.font", "rfw_tpu_torch.font.plugin",
     "rfw_tpu_torch.render.cpu_reference",
+    "rfw_tpu_torch.render.refit_device", "rfw_tpu_torch.render.threefry",
+    "rfw_tpu_torch.accel.tlas_device", "rfw_tpu_torch.accel.lbvh",
 ]
 
 

@@ -230,3 +230,36 @@ def test_overlay_rasterize_and_composite():
     assert ov_a.dtype == ov_b.dtype and np.array_equal(ov_a, ov_b)
     assert (ov_b[..., 3] > 0).mean() > 0.1
     assert fr_a.dtype == fr_b.dtype == np.uint8 and np.array_equal(fr_a, fr_b)
+
+
+def test_mesh_ranges_out(monkeypatch):
+    """pack_trace_scene's `mesh_ranges_out` (the arena ranges the device
+    refit plans read) equals rfw_tpu's on a scene with a skinned unit, a
+    morphed unit packed as two pose groups under pseudo slots, and a
+    static mesh."""
+    from rfw_tpu.render.pack import pack_trace_scene as ref_pack
+    from rfw_tpu_torch.render.pack import pack_trace_scene
+
+    import importlib
+
+    monkeypatch.setenv("RFW_NO_NATIVE", "1")
+    out = []
+    for pkg, pack in (("rfw_tpu", ref_pack), ("rfw_tpu_torch", pack_trace_scene)):
+        prim = importlib.import_module(f"{pkg}.models.primitives")
+        skinned, morphed, static = prim.sphere(quality=1), prim.quad3d(), prim.cube()
+        v = skinned.num_vertices
+        skinned.joints = np.tile(np.array([0, 1, 0, 0], np.int32), (v, 1))
+        skinned.weights = np.tile(np.array([0.5, 0.5, 0, 0], np.float32), (v, 1))
+        morphed.morph_targets = np.ones((1, morphed.num_vertices, 3), np.float32)
+        eye = np.eye(4, dtype=np.float32)
+        pseudo = [(1 << 20) + (1 << 12) + g for g in range(2)]
+        meshes = [(0, skinned, None), (pseudo[0], morphed, None),
+                  (pseudo[1], morphed, None), (2, static, None)]
+        inst = [(0, np.stack([eye, eye])), (pseudo[0], eye[None]), (pseudo[1], eye[None]),
+                (2, eye[None]), (7, eye[None])]  # slot 7 has no mesh: skipped
+        ranges = {}
+        pack(meshes, inst, deformed_positions={0: skinned.positions + 0.1},
+             mesh_ranges_out=ranges)
+        out.append(ranges)
+    _torch_scene.same(out[0], out[1])
+    assert out[1][pseudo[1]]["inst"] == (3, 4) and "__tlas__" in out[1]

@@ -2,9 +2,9 @@
 packed arenas (packed by rfw_tpu, converted with rfw_tpu_torch.convert).
 
 The JAX reference runs render_sample(traversal="packet", two_phase="off",
-sampler="sobol") on the CPU; the port runs its plain traversal on the CPU.
-The Sobol uniforms are bit-identical, so paths agree lane for lane up to
-float32 rounding. Tolerances: at least 99% of pixels within atol 1e-3 +
+sampler="sobol", and the default "random") on the CPU; the port runs its
+plain traversal on the CPU. The Sobol and the threefry uniforms are
+bit-identical, so paths agree lane for lane up to float32 rounding. Tolerances: at least 99% of pixels within atol 1e-3 +
 rtol 1e-3 on every channel, mean radiance within 1e-3 relative; the
 first-hit AOVs within 1e-4 (albedo, normal) and 1e-4 relative (depth,
 position) on 99% of pixels; tonemapped uint8 frames within 1 on 99% of
@@ -130,13 +130,54 @@ def test_compaction_and_sort_do_not_change_pixels(scene):
         np.testing.assert_allclose(other, base, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("bad,exc", [(dict(sampler="random"), NotImplementedError),
+@pytest.mark.parametrize("bad,exc", [(dict(sampler="random"), ValueError),
                                      (dict(two_phase="maybe"), ValueError),
                                      (dict(traversal="pallas"), ValueError)])
 def test_unported_options_raise(scene, bad, exc):
+    """Unknown options raise; so does the random sampler without a key."""
     kw = {**_cfg_kwargs(scene[1], 1), **bad}
     with pytest.raises(exc):
         _port_render(scene, kw)
+
+
+@pytest.mark.parametrize("bounces,sort", [(1, False), (2, True)],
+                         ids=["bounces1-unsorted", "bounces2-sorted"])
+def test_random_sampler_matches_jax(scene, bounces, sort):
+    """The JAX package's default sampler: threefry uniforms drawn per lane
+    from the key, `jax.random`'s bit for bit (render/threefry.py). With
+    lanes in pixel order (`sort_secondary=False`), and with the bounce sort
+    on (stable in both packages), the port renders rfw_tpu's pixels at the
+    radiance tolerances above; the first-hit AOVs (jittered camera rays)
+    within the AOV tolerances."""
+    from rfw_tpu_torch.render import threefry
+
+    kw = {**_cfg_kwargs(scene[1], bounces), "sampler": "random", "sort_secondary": sort}
+    sc, mats, lights, atlas, camera = scene
+    from rfw_tpu.render.atlas import atlas_to_device
+    from rfw_tpu.render.lights_pack import DeviceLights
+    from rfw_tpu.render.pack import TraceScene
+    from rfw_tpu.render.wavefront import RenderConfig, render_sample
+
+    view = camera.get_view(W, H).as_array()
+    r = render_sample(
+        TraceScene(*[jnp.asarray(x) for x in sc]), jax.device_put(mats),
+        atlas_to_device(atlas), DeviceLights(*[jnp.asarray(x) for x in lights]),
+        jnp.asarray(view), jax.random.fold_in(jax.random.PRNGKey(42), 3), W, H,
+        RenderConfig(traversal="packet", **kw))
+    ref = {k: np.asarray(getattr(r, k)) for k in r._fields}
+    s, m, li, a = from_numpy_scene(sc, mats, lights, atlas, device="cpu")
+    g = tw.render_sample(s, m, a, li, torch.from_numpy(view), W, H, tw.RenderConfig(**kw),
+                         key=threefry.fold_in(threefry.PRNGKey(42), 3))
+    got = {k: getattr(g, k).numpy() for k in g._fields}
+    assert np.isfinite(got["radiance"]).all()
+    assert _frac_close(got["radiance"], ref["radiance"], 1e-3, 1e-3) >= 0.99
+    m_ref, m_got = ref["radiance"].mean(), got["radiance"].mean()
+    assert m_ref > 0 and abs(m_got - m_ref) <= 1e-3 * m_ref
+    assert _frac_close(got["normal"], ref["normal"], 1e-4, 0.0) >= 0.99
+    assert _frac_close(got["depth"], ref["depth"], 0.0, 1e-4) >= 0.99
+    # the jitter is the key's, not the pixel centre's
+    assert not np.array_equal(got["depth"], _port_render(
+        scene, {**kw, "sampler": "sobol"})["depth"])
 
 
 @pytest.mark.parametrize("two_phase,tp_shadow", [("auto", "0"), ("on", "0"), ("on", "1")],
