@@ -143,7 +143,23 @@ Phases (any failed check raises, so the script exits nonzero):
      identical, ids up to counted exact-t ties; (d) one 1080p sample with
      sampler="random": every threefry uniform it drew on the card
      identical to the same call on the CPU; ms per sample of "random"
-     against "sobol" in turns.
+     against "sobol" in turns;
+ 13. the scale-out layer and the examples: (a) the 1080p frame of phase
+     5's settings with two_phase="auto" rendered as four row0 strips of
+     270 rows, one after another, against the full frame (differing
+     pixels per output; each live strip ray matched by its bits to the
+     frame's same ray: closest hits with the same t but other ids counted
+     as exact-t ties, any other t or occlusion flag fails), the strips'
+     time against one full-frame sample in turns, and one strip's counted
+     run; (b) a one-rank NCCL group made by film_mesh():
+     render_sample_sharded against render_sample (Sobol, per pixel),
+     render_spp_sharded (Sobol and random) and render_sharded_2d on a
+     (1, 1) mesh, 4 samples each, against the sequential means (rtol 1e-5,
+     atol 1e-6), broadcast_scene of the packed arenas and the time of an
+     NCCL broadcast of them and of an all-reduce of one sample's radiance;
+     (c) examples/torch_{cornell,physics,d2,interactive}.py as
+     subprocesses on the card, all at once: exit 0, their frame and timing
+     lines logged, their PNGs written.
 The tests that need a card (tests/test_torch_*.py, `*_on_card`) cannot run
 where the card is (their conftest imports jax); these phases make their
 checks (.claude/skills/verify/SKILL.md maps each test to its phase).
@@ -163,7 +179,8 @@ counts and by the plain version's likewise) and which of the two bounds
 it; no single PyTorch call computes a BVH traversal or either
 microbenchmark, so library_ms is null; launches_app is its launches in
 phase 11's first frame, launches_dynamics in phase 12's first dynamic
-frame (its sync and its render). The last line is
+frame (its sync and its render), launches_parallel in phase 13's
+counted film strip. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -2540,6 +2557,272 @@ def phase12(card, dev, parts, camera, scene, mats, atlas, lights, view, base):
     return a["launches"]
 
 
+# ------------------------------------------------------------------ phase 13
+N_STRIPS = 4
+PAR_SPP = 4
+EXAMPLE_TIMEOUT = 300
+# each example counterpart as a user runs it, with its output in a
+# temporary directory (OUT) and, for those that loop, the frame count
+EXAMPLES = (
+    ("torch_cornell.py", ["--size", "256", "--spp", "4", "--out", "OUT/cornell.png"]),
+    ("torch_physics.py", ["--balls", "64", "--frames", "4", "--out-dir", "OUT/physics"]),
+    ("torch_d2.py", ["--frames", "2", "--out-dir", "OUT/d2"]),
+    ("torch_interactive.py", ["--no-pica", "--frames", "2", "--port", "0"]),
+)
+
+
+def _ray_keys(o, d, tl) -> torch.Tensor:
+    """An int64 hash of each ray's bits (origin, direction, t_limit)."""
+    cols = torch.cat([o, d, tl[:, None]], dim=1).contiguous().view(torch.int32).long()
+    h = torch.zeros(cols.shape[0], dtype=torch.int64, device=cols.device)
+    for j in range(cols.shape[1]):
+        h = (h ^ (cols[:, j] & 0xFFFFFFFF)) * 0x100000001B3 + j
+    return h
+
+
+def capture_hits(run):
+    """Run `run()` with render_sample's traversal calls recorded (primaries,
+    shadows, the two-phase bounce calls): returns (run()'s result,
+    {"closest": (keys, t, prim, inst), "occluded": (keys, flags)}) over the
+    live rays (t_limit > 0) of every call; the calls still run."""
+    from rfw_tpu_torch.render import wavefront as wf
+
+    rec = defaultdict(list)
+
+    def recorder(kind, fn):
+        def record(ps, o, d, tl, **kw):
+            out = fn(ps, o, d, tl, **kw)
+            tl = torch.as_tensor(tl, dtype=torch.float32, device=o.device).expand(o.shape[0])
+            live = tl > 0
+            keys = _ray_keys(o[live], d[live], tl[live])
+            if kind == "closest":
+                rec[kind].append((keys, out.t[live], out.prim[live], out.inst[live]))
+            else:
+                rec[kind].append((keys, out[live]))
+            return out
+        return record
+
+    with patched(wf, closest_hit=recorder("closest", wf.closest_hit),
+                 occluded=recorder("occluded", wf.occluded),
+                 twophase_closest_with_fallback=recorder(
+                     "closest", wf.twophase_closest_with_fallback)):
+        res = run()
+    return res, {k: tuple(torch.cat(c) for c in zip(*v)) for k, v in rec.items()}
+
+
+def match_hits(full: dict, strips: dict) -> dict:
+    """Each live strip ray matched by its bits to the full frame's same ray:
+    counts of rays not found (a path that left the full frame's after a
+    tie), closest hits with the same t but other ids (exact-t ties), with
+    another t, and occlusion flags that differ."""
+    out = {}
+    for kind in ("closest", "occluded"):
+        fk, sk = full[kind][0], strips[kind][0]
+        order = torch.argsort(fk)
+        fs = fk[order]
+        idx = torch.searchsorted(fs, sk).clamp(max=fs.shape[0] - 1)
+        found = fs[idx] == sk
+        j = order[idx[found]]
+        out[f"{kind}_rays"] = int(sk.shape[0])
+        out[f"{kind}_unmatched"] = int((~found).sum())
+        f_vals = [x[j] for x in full[kind][1:]]
+        s_vals = [x[found] for x in strips[kind][1:]]
+        if kind == "closest":
+            same_t = bits(f_vals[0]) == bits(s_vals[0])
+            other_id = (f_vals[1] != s_vals[1]) | (f_vals[2] != s_vals[2])
+            out["ties"] = int((same_t & other_id).sum())
+            out["t_differs"] = int((~same_t).sum())
+        else:
+            out["flags_differ"] = int((f_vals[0] != s_vals[0]).sum())
+    return out
+
+
+def phase13a(card, scene, mats, atlas, lights, view, base):
+    """Strips in turn: the 1080p frame as four row0 strips of 270 rows, one
+    after another, against the full frame (phase 5's settings,
+    two_phase="auto", Sobol): differing pixels, each strip ray matched to
+    the full frame's (exact-t ties counted); the strips' time against one
+    full-frame sample; the launches of one strip's counted run."""
+    from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
+
+    cfg = RenderConfig(**{**base, "two_phase": "auto"})
+    hs = H // N_STRIPS
+
+    def full():
+        return render_sample(scene, mats, atlas, lights, view, W, H, cfg, sample_index=5)
+
+    def strip(k):
+        return render_sample(scene, mats, atlas, lights, view, W, hs, cfg, sample_index=5,
+                             row0=k * hs)
+
+    strip(1)  # warm-up of the strip's shapes
+    torch.cuda.synchronize()
+    reset_launches()
+    strip(1)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(card, f"phase 13 (a): one counted strip (rows {hs}-{2 * hs - 1} of {H}) launched "
+              f"{ {k: n for k, n in launches.items() if n} }")
+    for kind in ("closest", "occluded", "items_closest"):
+        assert launches[kind] > 0, f"the strip never launched the {kind} kernel"
+
+    ref, hits_full = capture_hits(full)
+    parts, hits = [], defaultdict(list)
+    for k in range(N_STRIPS):
+        r, h = capture_hits(lambda: strip(k))
+        parts.append(r)
+        for kind, cols in h.items():
+            hits[kind].append(cols)
+    hits = {kind: tuple(torch.cat(c) for c in zip(*v)) for kind, v in hits.items()}
+    differ = {}
+    for f in ("radiance", "albedo", "normal", "depth", "position", "ao"):
+        cat, whole = torch.cat([getattr(p, f) for p in parts]), getattr(ref, f)
+        assert cat.shape == whole.shape, (f, cat.shape, whole.shape)
+        ne = bits(cat) != bits(whole)
+        differ[f] = int((ne.any(1) if ne.dim() > 1 else ne).sum())
+    m = match_hits(hits_full, hits)
+    log(card, f"phase 13 (a): {N_STRIPS} strips of {W}x{hs} against the {W}x{H} frame: "
+              f"differing pixels {differ}; strip rays matched to the frame's: {m}")
+    assert bool(torch.isfinite(ref.radiance).all()) and ref.radiance.mean().item() > 0
+    assert m["t_differs"] == 0 and m["flags_differ"] == 0, f"strip rays disagree: {m}"
+    if max(differ.values()) or m["closest_unmatched"] or m["occluded_unmatched"]:
+        assert m["ties"] > 0, "strips differ from the frame without an exact-t tie"
+
+    times = defaultdict(list)
+    for label in ("full", "strips", "strips", "full"):
+        if label == "full":
+            times[label].append(timed(full)[1])
+        else:
+            times[label].append(sum(timed(lambda: strip(k))[1] for k in range(N_STRIPS)))
+    log(card, f"phase 13 (a): ms in turns (CUDA events, each call from its launch to its "
+              f"end): one full-frame sample {', '.join(f'{x:.2f}' for x in times['full'])}; "
+              f"the {N_STRIPS} strips one after another "
+              f"{', '.join(f'{x:.2f}' for x in times['strips'])}")
+    return dict(launches=launches, differ=differ, match=m, times=times)
+
+
+def phase13b(card, dev, scene, mats, atlas, lights, view, base):
+    """A one-rank NCCL group made by film_mesh(): the sharded entry points
+    against the plain calls they stand for at 1080p; broadcast_scene of the
+    packed arenas; the NCCL all-reduce of one sample's radiance."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from rfw_tpu_torch.parallel import broadcast_scene, film_mesh, render_sample_sharded
+    from rfw_tpu_torch.parallel.mesh import mesh_2d, render_sharded_2d, render_spp_sharded
+    from rfw_tpu_torch.render import threefry
+    from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
+
+    sob = RenderConfig(**{**base, "two_phase": "auto"})
+    rnd = dataclasses.replace(sob, sampler="random")
+    key = threefry.fold_in(threefry.PRNGKey(SEED), 13)
+    args = (scene, mats, atlas, lights, view, key, W, H)
+    try:
+        mesh = film_mesh()
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        assert mesh.device_type == "cuda"
+        res = render_sample_sharded(mesh, *args, sob, sample_index=2)
+        assert isinstance(res.radiance, DTensor)
+        got = res.radiance.full_tensor()
+        ref = render_sample(scene, mats, atlas, lights, view, W, H, sob, sample_index=2).radiance
+        n_diff = int((bits(got) != bits(ref)).any(1).sum())
+        log(card, f"phase 13 (b): one-rank NCCL film mesh {tuple(mesh.shape)} "
+                  f"{mesh.mesh_dim_names}: render_sample_sharded vs render_sample at "
+                  f"{W}x{H}, Sobol: {n_diff} differing pixels")
+        assert n_diff == 0, "render_sample_sharded differs from render_sample"
+
+        keys = threefry.split(key, PAR_SPP)
+        seq = {}
+        for name, cfg in (("sobol", sob), ("random", rnd)):
+            acc = torch.zeros((W * H, 3), dtype=torch.float32, device=dev)
+            for s in range(PAR_SPP):
+                acc += render_sample(scene, mats, atlas, lights, view, W, H, cfg,
+                                     sample_index=s if cfg is sob else None,
+                                     key=keys[s]).radiance
+            seq[name] = acc / PAR_SPP
+        spp_mesh = film_mesh(axis="spp")
+        checks = {
+            "render_spp_sharded sobol": render_spp_sharded(spp_mesh, *args, PAR_SPP, sob),
+            "render_spp_sharded random": render_spp_sharded(spp_mesh, *args, PAR_SPP, rnd),
+            "render_sharded_2d (1, 1) sobol": render_sharded_2d(mesh_2d(1, 1), *args,
+                                                                PAR_SPP, sob),
+        }
+        for name, r in checks.items():
+            got = r.full_tensor()
+            want = seq[name.split()[-1]]
+            err = (got - want).abs()
+            ok = bool((err <= 1e-6 + 1e-5 * want.abs()).all())
+            log(card, f"phase 13 (b): {name}, {PAR_SPP} samples, against the sequential mean: "
+                      f"max abs err {err.max().item():.3e}, "
+                      f"{int((bits(got) != bits(want)).any(1).sum())} pixels not bit-identical")
+            assert ok, f"{name} differs from the sequential mean beyond rtol 1e-5 / atol 1e-6"
+
+        assert broadcast_scene(scene) is scene  # one rank: the tree unchanged
+        arenas = [t for part in (scene, lights, atlas) for t in part if t is not None] + [
+            getattr(mats, f.name) for f in dataclasses.fields(mats)]
+        n_bytes = sum(t.numel() * t.element_size() for t in arenas)
+
+        def bcast():
+            for t in arenas:
+                dist.broadcast(t, 0)
+        bc_ms = cuda_ms(bcast, 5)
+        rad = seq["sobol"].clone()
+        ar_ms = cuda_ms(lambda: dist.all_reduce(rad), 10)
+        log(card, f"phase 13 (b): broadcast_scene at one rank returns the tree; NCCL "
+                  f"broadcast of the {len(arenas)} packed arenas ({n_bytes} B) {bc_ms:.4f} ms; "
+                  f"NCCL all-reduce (SUM) of a ({W * H}, 3) f32 radiance {ar_ms:.4f} ms "
+                  f"(one rank, CUDA events over 10)")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return dict(allreduce_ms=ar_ms, broadcast_ms=bc_ms)
+
+
+def phase13c(card):
+    """The examples' counterparts, each as a subprocess on the card (run at
+    once, so their times share the card): exit 0, their frame and timing
+    lines logged, their PNGs present."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as out:
+        procs = []
+        for name, argv in EXAMPLES:
+            argv = [a.replace("OUT", out) for a in argv]
+            procs.append((name, subprocess.Popen(
+                [sys.executable, str(root / "examples" / name), *argv], cwd=str(root),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        try:
+            for name, p in procs:
+                stdout, stderr = p.communicate(timeout=EXAMPLE_TIMEOUT)
+                for line in stdout.strip().splitlines():
+                    log(card, f"phase 13 (c) {name}: {line}")
+                assert p.returncode == 0, f"{name} exited {p.returncode}:\n{stderr[-3000:]}"
+        finally:
+            for _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        pngs = sorted(str(p.relative_to(out)) for p in Path(out).rglob("*.png"))
+        log(card, f"phase 13 (c): {len(pngs)} PNGs written: {pngs}")
+        want = ["cornell.png", *(f"physics/frame_{i:04d}.png" for i in range(4)),
+                *(f"d2/frame_{i:04d}.png" for i in range(2))]
+        assert pngs == sorted(want), pngs
+        for p in want:
+            assert (Path(out) / p).read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", p
+
+
+def phase13(card, dev, scene, mats, atlas, lights, view, base):
+    """The scale-out layer and the examples on the card. Returns the
+    launches of one strip's counted run."""
+    t_phase = time.perf_counter()
+    a = phase13a(card, scene, mats, atlas, lights, view, base)
+    phase13b(card, dev, scene, mats, atlas, lights, view, base)
+    phase13c(card)
+    log(card, f"phase 13: {time.perf_counter() - t_phase:.2f} s")
+    return a["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -2690,6 +2973,9 @@ def main() -> int:
     dyn_launches = phase12(card, dev, parts, camera, scene, mats, atlas, lights, view_full,
                            base)
 
+    # ---- 13. the scale-out layer and the examples
+    par_launches = phase13(card, dev, scene, mats, atlas, lights, view_full, base)
+
     def row(name, source, replaces, launches, rows, extra_err=(), **extra):
         b = max(rows, key=lambda r: r["bound_ms"]) if rows else None
         if rows and all("bound_ms_plain_counts" in r for r in rows):  # the walks K1-K5
@@ -2734,7 +3020,8 @@ def main() -> int:
             ubench["launches"]["grid"], ubench["U2"]),
     ]
     # each kernel's launches in phase 11's counted run, the app's first
-    # frame, and in phase 12's, the first dynamic frame
+    # frame, in phase 12's, the first dynamic frame, and in phase 13's,
+    # one film strip
     app_kinds = {"K1": ("closest",), "K2": ("occluded",), "K3": ("items_closest",),
                  "K5": ("items_occluded",), "K4": ("entries",),
                  "K6": ("dense_closest", "dense_occluded"), "U1": ("leaf",), "U2": ("grid",)}
@@ -2742,6 +3029,7 @@ def main() -> int:
         kinds = app_kinds[k["name"].split()[0]]
         k["launches_app"] = sum(app_launches[kind] for kind in kinds)
         k["launches_dynamics"] = sum(dyn_launches[kind] for kind in kinds)
+        k["launches_parallel"] = sum(par_launches[kind] for kind in kinds)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

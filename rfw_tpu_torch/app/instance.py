@@ -13,7 +13,8 @@ reference's RenderSystem plugin (rfw/src/system/mod.rs:238-242).
 
 Host copy of `rfw_tpu/app/instance.py`: the same numpy code with its imports
 rewritten to `rfw_tpu_torch`, so that it computes what the original
-computes, bit for bit.
+computes, bit for bit; `save_png` writes with `utils/png.py` where the
+original calls Pillow.
 """
 
 from __future__ import annotations
@@ -254,11 +255,11 @@ class Instance:
             self.resize(last.width, last.height, last.scale)
 
     def save_png(self, path: str) -> None:
-        from PIL import Image
+        from rfw_tpu_torch.utils.png import write_png
 
         if self.render_system.last_frame is None:
             self.render_frame()
-        Image.fromarray(self.render_system.last_frame).save(path)
+        write_png(path, self.render_system.last_frame)
         _LOG.info("saved %s", path)
 
     def resize(self, width: int, height: int,

@@ -18,20 +18,21 @@ with two providers:
   * `BrowserWindow` — an actually interactive window on a headless
     host: a stdlib HTTP server streams the presented frames to a canvas
     page and maps browser key/mouse/wheel events back into the winit
-    mirror. Zero dependencies beyond PIL (PNG encode).
+    mirror. Zero dependencies: frames are encoded by the stdlib PNG
+    writer of `utils/png.py`.
 
 `Instance.run_windowed(window)` (instance.py) is the poll loop;
 `Backend.from_window_handle` (backend/contract.py) is the B2 ctor seam.
 
 Host copy of `rfw_tpu/app/window.py`: the same numpy code with its imports
 rewritten to `rfw_tpu_torch`, so that it computes what the original
-computes, bit for bit.
+computes, bit for bit; `BrowserWindow.present` encodes with
+`utils/png.py` where the original calls Pillow.
 """
 
 from __future__ import annotations
 
 import enum
-import io
 import json
 import threading
 from collections import deque
@@ -650,12 +651,11 @@ class BrowserWindow:
         return out
 
     def present(self, frame: np.ndarray) -> None:
-        from PIL import Image
+        from rfw_tpu_torch.utils.png import encode_png
 
-        buf = io.BytesIO()
-        Image.fromarray(np.asarray(frame)).save(buf, "PNG")
+        png = encode_png(frame)
         with self._frame_lock:
-            self._frame_png = buf.getvalue()
+            self._frame_png = png
 
     def request_redraw(self) -> None:
         self._redraw = True

@@ -664,13 +664,21 @@ def render_sample(
     sky_tex=None,  # (1,) atlas texture id; None = constant sky
     sample_index=None,  # progressive sample index (sobol), int or tensor
     key=None,  # threefry key ((2,) words, `threefry.PRNGKey`) for "random"
+    row0=0,  # first film row of this call's strip (int or 0-d tensor)
 ) -> SampleResult:
     """Trace one sample per pixel; returns radiance + first-hit AOVs in
     pixel order. Counterpart of `rfw_tpu.render.wavefront.render_sample`,
     with `key` a keyword (the JAX function takes it positionally). As
     there, the Sobol sampler runs when `config.sampler == "sobol"` and a
     `sample_index` is given; otherwise the random sampler, which needs
-    `key`."""
+    `key`.
+
+    `row0` renders a film strip: the call covers rows [row0, row0 +
+    height) of the frame whose view `view` is (camera NDC reads the
+    frame's 1/height from it), so pixel ids, Sobol keys and camera rays
+    are the full frame's and the outputs hold the strip's pixels in
+    order. The random sampler draws per lane of the strip, as the JAX
+    package's does."""
     use_sobol = config.sampler == "sobol" and sample_index is not None
     if not use_sobol and key is None:
         raise ValueError(
@@ -713,6 +721,18 @@ def render_sample(
     else:
         pixel_ids = None
         pid = torch.arange(R, dtype=torch.int32, device=dev)
+    pid_base = 0  # the strip's first pixel id: lane pid - pid_base = output row
+    if not (isinstance(row0, int) and row0 == 0):
+        # the block swizzle ran on the strip's own width x height; offset
+        # py so camera NDC, Sobol keys and pid are the full frame's
+        if pixel_ids is None:
+            px, py = pid % width, pid // width
+        else:
+            px, py = pixel_ids
+        row0 = torch.as_tensor(row0, dtype=torch.int32, device=dev)
+        pixel_ids = (px, py + row0)
+        pid = (pixel_ids[1] * width + px).to(torch.int32)
+        pid_base = row0.long() * width
 
     if not use_sobol:
         k_cam, k_loop = threefry.split(key)
@@ -1059,7 +1079,7 @@ def render_sample(
     # ------------------------------------------------------------- output
     def to_pixels(a: torch.Tensor, lane_pid: torch.Tensor) -> torch.Tensor:
         out = torch.empty_like(a)
-        out[lane_pid] = a
+        out[lane_pid - pid_base] = a
         return out
 
     radiance = torch.clamp(to_pixels(v3_stack(st.radiance), st.pid.long()), min=0.0)

@@ -1,11 +1,12 @@
 """The port imports without jax and without rfw_tpu.
 
 The machine with the GPU has no jax installed, so every module of
-rfw_tpu_torch (and chip_smoke.py) must import with `import jax` failing,
-and none may import rfw_tpu, whose host modules reach jax through their
-package __init__ files. Pillow may be absent there too: every module
-imports with PIL blocked (the modules that decode or encode images import
-it inside the function that needs it).
+rfw_tpu_torch (and chip_smoke.py and the examples' counterparts,
+examples/torch_*.py) must import with `import jax` failing, and none may
+import rfw_tpu, whose host modules reach jax through their package
+__init__ files. Pillow may be absent there too: every module imports with
+PIL blocked (texture decoding and the font rasterizer import it inside the
+function that needs it; frames are encoded by utils/png.py).
 """
 
 import ast
@@ -18,7 +19,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "rfw_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
+SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + EXAMPLES
 
 _NO_JAX = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -37,6 +39,8 @@ names = [m.name for m in pkgutil.walk_packages(rfw_tpu_torch.__path__, "rfw_tpu_
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+for n in EXAMPLES:
+    importlib.import_module(f"examples.{n}")
 assert not any(m.split(".")[0] in ("jax", "rfw_tpu") for m in sys.modules)
 print(" ".join(names))
 print("imported", len(names))
@@ -45,7 +49,8 @@ print("imported", len(names))
 #: modules that must be among those imported with jax blocked (the
 #: backend layer and the host copies it needs, the scene and app layer,
 #: the loaders, the font plugin and the numpy oracle, the device
-#: dynamics and the threefry sampler, beside the renderer's)
+#: dynamics and the threefry sampler, the scale-out layer and the PNG
+#: writer, beside the renderer's)
 MODULES = [
     "rfw_tpu_torch.backend.contract", "rfw_tpu_torch.backend.structs",
     "rfw_tpu_torch.backend.lights", "rfw_tpu_torch.models.mesh2d",
@@ -69,12 +74,15 @@ MODULES = [
     "rfw_tpu_torch.render.cpu_reference",
     "rfw_tpu_torch.render.refit_device", "rfw_tpu_torch.render.threefry",
     "rfw_tpu_torch.accel.tlas_device", "rfw_tpu_torch.accel.lbvh",
+    "rfw_tpu_torch.parallel", "rfw_tpu_torch.parallel.mesh",
+    "rfw_tpu_torch.parallel.distributed", "rfw_tpu_torch.utils.png",
 ]
 
 
 def test_port_imports_without_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    out = subprocess.run([sys.executable, "-c", _NO_JAX], env=env, cwd=str(REPO),
+    script = _NO_JAX.replace("EXAMPLES", repr([p.stem for p in EXAMPLES]))
+    out = subprocess.run([sys.executable, "-c", script], env=env, cwd=str(REPO),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     lines = out.stdout.strip().splitlines()
