@@ -31,7 +31,8 @@ Phases (any failed check raises, so the script exits nonzero):
      ray and the achieved occupancy; and K1's tie rule on two coplanar
      quads in different treelets (tie_between_treelets);
   4. a 256x144 render through the kernels against the same render through
-     the plain traversal (traversal="lockstep");
+     the lockstep tier (traversal="lockstep": one stack per ray over the
+     binary arenas, the reference's oracle tier);
   5. the main path at 1920x1080 with two_phase="off": a warm-up sample
      whose traversal inputs are captured, each kernel against its plain
      version on exactly those inputs (compare_call, with both times), then 8 timed
@@ -159,7 +160,28 @@ Phases (any failed check raises, so the script exits nonzero):
      NCCL broadcast of them and of an all-reduce of one sample's radiance;
      (c) examples/torch_{cornell,physics,d2,interactive}.py as
      subprocesses on the card, all at once: exit 0, their frame and timing
-     lines logged, their PNGs written.
+     lines logged, their PNGs written;
+ 14. the slice that closes the port: (a) the native host library
+     (rfw_tpu_torch/native, built by g++ in phase 1, its first use, and
+     timed there), the flagship and heavy scenes packed by it and by numpy
+     (RFW_NO_NATIVE=1) in turns, host seconds each, node, leaf-link and
+     instance arrays identical and every leaf's triangle set identical; a
+     256x144 Sobol render from each flagship pack at phase 4's gate; the
+     backend's host routes (device_dynamics and device_motion off) on
+     phase 12 (a)'s scene, dynamic and motion syncs by either builder in
+     turns; (b) 256x144 1-spp Sobol frames (two_phase="auto") under
+     "packet", "lockstep", "pallas" and "pallas_hbm" against "auto" at
+     phase 4's gate, ms per sample by CUDA events, the "pallas" frame's
+     launches counted (counters reset just before it, read just after),
+     and a "pallas" frame at 248x144 (R no multiple of 1,024: the kernels
+     in rfw_tpu's packet lane order, two-phase off) against "auto" at that
+     size, its launches counted (K1 and K2, no K3);
+     (c) the public two-phase call ops.pallas_twophase_closest_hit (phase
+     A by K4, phase B by K3, no retrace) on phase 7's captured bounce rays,
+     its launches counted, its hits against K1's on the rays it does not
+     mark truncated (check_nearest), its time against K1's; (d)
+     build_lbvh_device on the heavy scene's 10,000 instance boxes on the
+     card against the CPU (bit for bit), with its time.
 The tests that need a card (tests/test_torch_*.py, `*_on_card`) cannot run
 where the card is (their conftest imports jax); these phases make their
 checks (.claude/skills/verify/SKILL.md maps each test to its phase).
@@ -180,7 +202,8 @@ it; no single PyTorch call computes a BVH traversal or either
 microbenchmark, so library_ms is null; launches_app is its launches in
 phase 11's first frame, launches_dynamics in phase 12's first dynamic
 frame (its sync and its render), launches_parallel in phase 13's
-counted film strip. The last line is
+counted film strip, launches_tiers in phase 14's "pallas" frame and
+launches_twophase_call in its public two-phase call. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -189,6 +212,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -747,7 +771,8 @@ def packed_items(ps, o, d, tl, K, items_per_ray):
     from rfw_tpu_torch.accel.bvh_cpu import TREELET
     from rfw_tpu_torch.ops import traverse_items as ti
 
-    ents, _, _, slot_inst, o_s, d_s, tl_s = ti._pack(ps, o, d, tl, K, items_per_ray)
+    ents, _, _, slot_inst, o_s, d_s, tl_s = ti._pack(ps, o, d, tl, K,
+                                                     math.ceil(o.shape[0] * items_per_ray))
     iid = slot_inst.clamp(0, max(ps.n_inst - 1, 0)).long()
     nt = ps.thi[iid] - ps.tlo[iid]
     dense_k = (slot_inst >= 0) & (nt > 0) & (nt <= ti.DENSE_MAX_TRIS // TREELET)
@@ -1215,7 +1240,7 @@ def phase7(card, dev, scene, mats, atlas, lights, view, ps, base):
         sample, counted="auto")
     for k in ("closest", "occluded", "items_closest"):
         assert launches[k] > 0, f"the two-phase main path never launched {k}"
-    return dict(K3=[k3], K5=[k5], K4=[k4], launches=launches, fallback=fb)
+    return dict(K3=[k3], K5=[k5], K4=[k4], launches=launches, fallback=fb, rays=(o, d, tl))
 
 
 def phase8(card, dev, base):
@@ -2823,6 +2848,284 @@ def phase13(card, dev, scene, mats, atlas, lights, view, base):
     return a["launches"]
 
 
+# ------------------------------------------------------------------ phase 14
+#: phase 4's frame size and gate: the share of pixels within 1e-3 abs +
+#: 1e-3 rel of the reference frame
+TIER_W, TIER_H = 256, 144
+PX_GATE = 0.995
+#: the traversal tiers held against "auto" (phase 14 (b))
+TIERS = ("packet", "lockstep", "pallas", "pallas_hbm")
+#: TraceScene fields that are nodes, leaf links or instance rows: a native
+#: and a numpy pack give the same ones
+NODE_PREFIXES = ("tlas", "blas", "inst", "mesh_tri_range")
+
+
+def px_agree(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """Share of pixels whose every channel is within 1e-3 + 1e-3 |ref|."""
+    return ((a - ref).abs() <= 1e-3 + 1e-3 * ref.abs()).all(dim=1).float().mean().item()
+
+
+def leaf_rows(scene_np) -> np.ndarray:
+    """Per treelet of the triangle arena, its (v0, e1, e2) rows sorted by
+    their bytes: a leaf's triangles whatever their order inside it."""
+    from rfw_tpu_torch.accel.bvh_cpu import TREELET
+
+    tri = np.ascontiguousarray(
+        np.concatenate([scene_np.tri_v0, scene_np.tri_e1, scene_np.tri_e2], 1), np.float32)
+    rows = tri.view(np.dtype((np.void, 36))).reshape(-1, TREELET)
+    return np.sort(rows, axis=1)
+
+
+def pack_turns(card, label, meshes, instances) -> dict:
+    """pack_trace_scene of one scene by the native builders and by numpy
+    (RFW_NO_NATIVE=1), in turns (native, numpy, numpy, native); host
+    seconds and the identity of the two packs."""
+    from rfw_tpu_torch.render.pack import pack_trace_scene
+
+    secs, packs = defaultdict(list), {}
+    for name in ("native", "numpy", "numpy", "native"):
+        with env(RFW_NO_NATIVE="1" if name == "numpy" else "0"):
+            t0 = time.perf_counter()
+            packs[name] = pack_trace_scene(meshes, instances)
+            secs[name].append(time.perf_counter() - t0)
+    a, b = packs["native"], packs["numpy"]
+    nodes = [f for f in a._fields if f.startswith(NODE_PREFIXES)]
+    same_nodes = all(np.array_equal(getattr(a, f), getattr(b, f)) for f in nodes)
+    same_leaves = np.array_equal(leaf_rows(a), leaf_rows(b))
+    moved = int((a.tri_v0 != b.tri_v0).any(axis=1).sum())
+    log(card, f"phase 14 (a) {label} pack, host seconds in turns (native, numpy, numpy, "
+              f"native): {secs['native'][0]:.3f}, {secs['numpy'][0]:.3f}, "
+              f"{secs['numpy'][1]:.3f}, {secs['native'][1]:.3f}; {len(nodes)} node, leaf-link "
+              f"and instance arrays identical {same_nodes}; every leaf's triangles the same "
+              f"set {same_leaves}; triangle rows in another order inside their leaf {moved} "
+              f"of {a.tri_v0.shape[0]}")
+    assert same_nodes and same_leaves, f"the native and numpy {label} packs differ"
+    return dict(secs=secs, packs=packs)
+
+
+def host_sync_turns(card, parts, camera, settings) -> dict:
+    """The host routes of TorchBackend (device_dynamics=False,
+    device_motion=False) on phase 12 (a)'s scene, the flagship plus four
+    skinned, morphed tubes: dynamic syncs (skin and morph on the host, BLAS
+    refit, repack) and motion syncs (the 256 spheres moved: TLAS rebuild),
+    each by the native and the numpy builders in turns."""
+    from rfw_tpu_torch.backend import InstancesView3D, SkinView
+    from rfw_tpu_torch.render.torch_backend import TorchBackend
+
+    tube = skinned_tube(next(i for i, m in parts["materials"].materials
+                             if m.name == "diffuse"))
+    mats = np.stack([np.eye(4, dtype=np.float32)] * 4)
+    mats[:, :3, 3] = [[-4.5, 0, -4.5], [4.5, 0, -4.5], [-4.5, 0, 4.5], [4.5, 0, 4.5]]
+
+    def tube_calls(t):
+        w = np.array([[0.5 + 0.5 * np.sin(t), 0.5 + 0.5 * np.cos(t)]] * 4, np.float32)
+        iv = InstancesView3D(matrices=mats, skin_ids=np.zeros(4, np.int32),
+                             changed=np.ones(4, bool), local_aabb_min=tube.aabb_min,
+                             local_aabb_max=tube.aabb_max, morph_weights=w)
+        return [(0, SkinView(joint_matrices=tube_pose(t)))], [(TUBE_SLOT, iv)]
+
+    be = TorchBackend(TIER_W, TIER_H, dataclasses.replace(
+        settings, device_dynamics=False, device_motion=False))
+    skins, inst = tube_calls(0.0)
+    be.set_skins(skins)
+    feed_flagship(be, parts, [(TUBE_SLOT, tube.view())], inst)
+    meshes = {slot: mesh for slot, mesh, _ in parts["meshes"]}
+    spheres = [(slot, m.copy()) for slot, m in parts["instances"][:4]]
+    rng = np.random.default_rng(SEED + 14)
+    out = {"dynamic": defaultdict(list), "motion": defaultdict(list)}
+    order = ("native", "numpy", "numpy", "native") * 2
+    for k, name in enumerate(order):
+        with env(RFW_NO_NATIVE="1" if name == "numpy" else "0"):
+            skins, inst = tube_calls(0.4 * (k + 1))
+            be.set_skins(skins)
+            be.set_3d_instances(inst)
+            be.synchronize()
+            out["dynamic"][name].append(be.stats["sync_ms"].last())
+            moved = []
+            for slot, m in spheres:
+                m[:, :3, 3] += rng.uniform(-0.1, 0.1, (m.shape[0], 3)).astype(np.float32)
+                n = m.shape[0]
+                moved.append((slot, InstancesView3D(
+                    matrices=m.copy(), skin_ids=np.full(n, -1, np.int32),
+                    changed=np.ones(n, bool), local_aabb_min=meshes[slot].aabb_min,
+                    local_aabb_max=meshes[slot].aabb_max)))
+            be.set_3d_instances(moved)
+            be.synchronize()
+            out["motion"][name].append(be.stats["sync_ms"].last())
+    for kind, ms in out.items():
+        log(card, f"phase 14 (a) host-route {kind} sync of phase 12 (a)'s scene, ms in turns "
+                  f"({', '.join(order)}): native "
+                  f"{', '.join(f'{x:.2f}' for x in ms['native'])} (mean "
+                  f"{np.mean(ms['native']):.2f}); numpy "
+                  f"{', '.join(f'{x:.2f}' for x in ms['numpy'])} (mean "
+                  f"{np.mean(ms['numpy']):.2f})")
+    return out
+
+
+def phase14a(card, dev, parts, flagship_np, camera, base, native_build) -> dict:
+    """The native host builder: its first-use build, flagship and heavy
+    packs native against numpy, a render from each flagship pack, and the
+    backend's host-route syncs."""
+    from rfw_tpu_torch import native
+    from rfw_tpu_torch.convert import from_numpy_scene
+    from rfw_tpu_torch.render.torch_backend import TorchSettings
+    from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
+    from rfw_tpu_torch.scenes import build_heavy_scene
+
+    log(card, f"phase 14 (a): native library {'/'.join(native_build.path.parts[-4:])} "
+              f"built by g++ at first use in {native_build.seconds:.3f} s (phase 1); "
+              f"native path active {native.available()}")
+    flag = pack_turns(card, "flagship", parts["meshes"], parts["instances"])
+    heavy_parts = build_heavy_scene(SEED + 1, N_HEAVY, views=True)
+    heavy = pack_turns(card, "heavy", heavy_parts[-1]["meshes"], heavy_parts[-1]["instances"])
+    mats_np, lights_np, atlas_np = flagship_np
+    view = torch.from_numpy(camera.get_view(TIER_W, TIER_H).as_array()).to(dev)
+    frames = {}
+    for name, sc in flag["packs"].items():
+        s, m, li, a = from_numpy_scene(sc, mats_np, lights_np, atlas_np, dev)
+        frames[name] = render_sample(s, m, a, li, view, TIER_W, TIER_H, RenderConfig(**base),
+                                     sample_index=1).radiance
+    share = px_agree(frames["native"], frames["numpy"])
+    log(card, f"phase 14 (a) {TIER_W}x{TIER_H} Sobol render from the native pack vs the numpy "
+              f"pack: {share:.6f} of pixels within 1e-3 abs + 1e-3 rel, mean "
+              f"{frames['native'].mean().item():.6f} vs {frames['numpy'].mean().item():.6f}")
+    assert share >= PX_GATE, f"native and numpy packs render apart ({share})"
+    settings = TorchSettings(samples_per_frame=1, max_bounces=BOUNCES, clamp=20.0,
+                             sky_intensity=0.35, sampler="sobol")
+    syncs = host_sync_turns(card, parts, camera, settings)
+    return dict(flagship=flag["secs"], heavy=heavy["secs"], syncs=syncs,
+                heavy_scene=heavy_parts[0])
+
+
+def phase14b(card, dev, scene, mats, atlas, lights, camera, base) -> dict:
+    """The traversal tiers at phase 4's size against "auto"; ms per sample
+    by CUDA events, one timed sample each after one warm-up sample of
+    "auto" (the tiers compile nothing); the "pallas" frame's launches
+    counted."""
+    from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample, resolve_traversal
+
+    view = torch.from_numpy(camera.get_view(TIER_W, TIER_H).as_array()).to(dev)
+    kw = {**base, "two_phase": "auto"}
+
+    def frame(traversal, s=1):
+        return render_sample(scene, mats, atlas, lights, view, TIER_W, TIER_H,
+                             RenderConfig(traversal=traversal, **kw), sample_index=s).radiance
+
+    out, ref = {}, None
+    frame("auto", 2)  # warm-up
+    for trav in ("auto", *TIERS):
+        tier = resolve_traversal(RenderConfig(traversal=trav), TIER_W * TIER_H)
+        if trav == "pallas":
+            torch.cuda.synchronize()
+            reset_launches()
+        r, ms = timed(lambda: frame(trav))
+        if trav == "pallas":
+            out["launches"] = read_launches()
+        if ref is None:
+            ref = r
+        share = px_agree(r, ref)
+        out[trav] = dict(ms=ms, share=share, tier=tier)
+        log(card, f"phase 14 (b) traversal={trav!r} ({tier[0]} tier, tiles of {tier[1]}): "
+                  f"{ms:.2f} ms per {TIER_W}x{TIER_H} sample (CUDA events), {share:.6f} of "
+                  f"pixels within 1e-3 abs + 1e-3 rel of \"auto\", mean {r.mean().item():.6f}")
+        assert bool(torch.isfinite(r).all()), f"non-finite radiance ({trav})"
+        assert share >= PX_GATE, f"traversal={trav!r} renders apart from auto ({share})"
+    launches = out["launches"]
+    log(card, f"phase 14 (b) the \"pallas\" frame launched {launches}")
+    for kind in ("closest", "occluded", "items_closest"):
+        assert launches[kind] > 0, f"the pallas frame never launched {kind}"
+
+    # off the 1,024-ray grain the Pallas names stay on the kernels
+    w = TIER_W - 8
+    view_w = torch.from_numpy(camera.get_view(w, TIER_H).as_array()).to(dev)
+
+    def frame_w(traversal):
+        return render_sample(scene, mats, atlas, lights, view_w, w, TIER_H,
+                             RenderConfig(traversal=traversal, **kw), sample_index=1).radiance
+
+    tier = resolve_traversal(RenderConfig(traversal="pallas"), w * TIER_H)
+    ref_w = frame_w("auto")
+    torch.cuda.synchronize()
+    reset_launches()
+    r, ms = timed(lambda: frame_w("pallas"))
+    off = read_launches()
+    share = px_agree(r, ref_w)
+    log(card, f"phase 14 (b) traversal='pallas' at {w}x{TIER_H} ({tier}): {ms:.2f} ms per "
+              f"sample (CUDA events), {share:.6f} of pixels within 1e-3 abs + 1e-3 rel of "
+              f"\"auto\" at that size; launched {off}")
+    assert tier.trace == "kernel" and not tier.two_phase, tier
+    assert off["closest"] > 0 and off["occluded"] > 0, off
+    assert off["items_closest"] == 0, "two-phase ran off the Pallas grain"
+    assert bool(torch.isfinite(r).all()) and share >= PX_GATE, share
+    out["pallas_off_grain"] = dict(ms=ms, share=share, launches=off)
+    return out
+
+
+def phase14c(card, ps, rays, cfg) -> dict:
+    """The public two-phase call (`ops.pallas_twophase_closest_hit`, phase A
+    by K4, phase B by K3, no retrace) on phase 7's captured bounce rays
+    against K1."""
+    from rfw_tpu_torch import ops
+    from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.render.intersect import Hit
+
+    o, d, tl = rays
+    torch.cuda.synchronize()
+    reset_launches()
+    hit, trunc = ops.pallas_twophase_closest_hit(ps, o, d, tl, K=cfg.tp_K)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(card, f"phase 14 (c) public two-phase call on {o.shape[0]} bounce rays (K={cfg.tp_K}, "
+              f"default capacity): launches {launches}; truncated {int(trunc.sum())}")
+    assert launches["entries"] == 1 and launches["items_closest"] == 1, launches
+    assert launches["closest"] == 0, "the public call retraced"
+    ref = tr.closest_hit(ps, o, d, tl)
+    keep = ~trunc
+    err = check_nearest(card, "phase 7's bounce rays not marked truncated",
+                        Hit(*[x[keep] for x in hit]), Hit(*[x[keep] for x in ref]),
+                        "public two-phase call vs K1")
+    call_ms = cuda_ms(lambda: ops.pallas_twophase_closest_hit(ps, o, d, tl, K=cfg.tp_K), 5)
+    k1_ms = cuda_ms(lambda: tr.closest_hit(ps, o, d, tl), 5)
+    log(card, f"phase 14 (c) public two-phase call {call_ms:.4f} ms per call against K1's "
+              f"{k1_ms:.4f} ms on the same rays (CUDA events, 5 calls each)")
+    return dict(launches=launches, ms=call_ms, k1_ms=k1_ms, max_abs_err=err)
+
+
+def phase14d(card, dev, heavy_np) -> dict:
+    """build_lbvh_device on the heavy scene's instance boxes, on the card
+    against the CPU."""
+    from rfw_tpu_torch.accel.lbvh import build_lbvh_device
+
+    live = heavy_np.inst_mesh >= 0
+    mn = torch.from_numpy(heavy_np.inst_aabb_min[live])
+    mx = torch.from_numpy(heavy_np.inst_aabb_max[live])
+    cpu = build_lbvh_device(mn, mx)
+    gmn, gmx = mn.to(dev), mx.to(dev)
+    card_bvh = build_lbvh_device(gmn, gmx)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(card_bvh, cpu))
+    ms = cuda_ms(lambda: build_lbvh_device(gmn, gmx), 5)
+    log(card, f"phase 14 (d) build_lbvh_device on {mn.shape[0]} instance boxes: card result "
+              f"bit-identical to the CPU's {same}; {ms:.3f} ms per build on the card (CUDA "
+              f"events, 5 builds)")
+    assert same, "the card's LBVH differs from the CPU's"
+    return dict(ms=ms)
+
+
+def phase14(card, dev, parts, flagship_np, camera, scene, mats, atlas, lights, base, ps,
+            tp_rays, native_build) -> dict:
+    """The slice that closes the port: the native host builder, the
+    traversal tiers, the public two-phase call and the device LBVH."""
+    from rfw_tpu_torch.render.wavefront import RenderConfig
+
+    t_phase = time.perf_counter()
+    a = phase14a(card, dev, parts, flagship_np, camera, base, native_build)
+    b = phase14b(card, dev, scene, mats, atlas, lights, camera, base)
+    c = phase14c(card, ps, tp_rays, RenderConfig(**{**base, "two_phase": "auto"}))
+    phase14d(card, dev, a["heavy_scene"])
+    log(card, f"phase 14: {time.perf_counter() - t_phase:.2f} s")
+    return dict(tiers=b["launches"], twophase_call=c["launches"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -2847,9 +3150,15 @@ def main() -> int:
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(card, f"ptxas {b.name}: " + line.strip())
+    from rfw_tpu_torch import native
     from rfw_tpu_torch.ops import traverse_entries as te
     from rfw_tpu_torch.ops import traverse_items as ti
     from rfw_tpu_torch.render.wavefront import RenderConfig
+
+    # the native host runtime, at its first use (the host build's default)
+    native_build = native.build()
+    log(card, f"native host library: built by g++ in {native_build.seconds:.3f} s "
+              f"({'/'.join(native_build.path.parts[-4:])})")
 
     tp_k = RenderConfig().tp_K
     for stats in (False, True):
@@ -2976,6 +3285,12 @@ def main() -> int:
     # ---- 13. the scale-out layer and the examples
     par_launches = phase13(card, dev, scene, mats, atlas, lights, view_full, base)
 
+    # ---- 14. the native host builder, the traversal tiers, the public
+    # two-phase call and the device LBVH
+    closing = phase14(card, dev, parts, (mats_np, lights_np, atlas_np), camera, scene, mats,
+                      atlas, lights, base, ps, tp["rays"], native_build)
+    del tp["rays"]
+
     def row(name, source, replaces, launches, rows, extra_err=(), **extra):
         b = max(rows, key=lambda r: r["bound_ms"]) if rows else None
         if rows and all("bound_ms_plain_counts" in r for r in rows):  # the walks K1-K5
@@ -3020,8 +3335,9 @@ def main() -> int:
             ubench["launches"]["grid"], ubench["U2"]),
     ]
     # each kernel's launches in phase 11's counted run, the app's first
-    # frame, in phase 12's, the first dynamic frame, and in phase 13's,
-    # one film strip
+    # frame, in phase 12's, the first dynamic frame, in phase 13's, one
+    # film strip, and in phase 14's, the "pallas" tier's frame and the
+    # public two-phase call
     app_kinds = {"K1": ("closest",), "K2": ("occluded",), "K3": ("items_closest",),
                  "K5": ("items_occluded",), "K4": ("entries",),
                  "K6": ("dense_closest", "dense_occluded"), "U1": ("leaf",), "U2": ("grid",)}
@@ -3030,6 +3346,8 @@ def main() -> int:
         k["launches_app"] = sum(app_launches[kind] for kind in kinds)
         k["launches_dynamics"] = sum(dyn_launches[kind] for kind in kinds)
         k["launches_parallel"] = sum(par_launches[kind] for kind in kinds)
+        k["launches_tiers"] = sum(closing["tiers"][kind] for kind in kinds)
+        k["launches_twophase_call"] = sum(closing["twophase_call"][kind] for kind in kinds)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

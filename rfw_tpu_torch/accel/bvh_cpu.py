@@ -1,6 +1,10 @@
-"""Host-side binned-SAH BVH builder: the numpy path of
-`rfw_tpu/accel/bvh_cpu.py`, copied so that its nodes are bit-identical to
-that package's pure-numpy build.
+"""Host-side binned-SAH BVH builder: counterpart of
+`rfw_tpu/accel/bvh_cpu.py`. As there, the build and the refit call the
+native C++ library (`rfw_tpu_torch.native`, the same source and result as
+`rfw_tpu`'s) unless `RFW_NO_NATIVE=1` is set or the build's caller
+passes `use_native=False`; the numpy path is a copy of that package's, so its
+nodes are bit-identical to `rfw_tpu`'s numpy build. The two builders give
+the same node arrays and leaf sets; `prim_order` may differ inside a leaf.
 
 Flat SoA node layout (BLAS and TLAS alike):
 
@@ -22,6 +26,8 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
+
+from rfw_tpu_torch import native
 
 N_BINS = 16
 MAX_LEAF = 8
@@ -54,13 +60,18 @@ def _surface_areas(mn: np.ndarray, mx: np.ndarray) -> np.ndarray:
 
 def build_bvh_sah(
     aabb_min: np.ndarray, aabb_max: np.ndarray, max_leaf: int = MAX_LEAF,
+    use_native: bool = True,
 ) -> BvhNodes:
     """Build from per-primitive AABBs -> flat BVH.
 
-    Works for triangles (BLAS) and instance bounds (TLAS) alike."""
+    Works for triangles (BLAS) and instance bounds (TLAS) alike. Uses the
+    native builder unless `use_native=False` or `RFW_NO_NATIVE=1`; this
+    numpy path is the reference."""
     aabb_min = np.asarray(aabb_min, np.float32)
     aabb_max = np.asarray(aabb_max, np.float32)
     n = aabb_min.shape[0]
+    if n > 0 and native.enabled(use_native):
+        return native.build_bvh_sah_native(aabb_min, aabb_max, max_leaf)
     if n == 0:
         # inverted (unhittable) box: the zero-filled encoding made an
         # internal node whose children are itself at a point box — a ray
@@ -175,7 +186,15 @@ def triangle_aabbs(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> Tuple[np.n
 def refit_bvh(bvh: BvhNodes, aabb_min: np.ndarray, aabb_max: np.ndarray) -> BvhNodes:
     """Refit node bounds bottom-up for deformed primitives, keeping topology
     (reference gpu-rt refit_bvh :1345-1384 semantics). Host-side; the
-    numpy path of `rfw_tpu.accel.bvh_cpu.refit_bvh`."""
+    native refit unless `RFW_NO_NATIVE=1`, else the numpy path of
+    `rfw_tpu.accel.bvh_cpu.refit_bvh`."""
+    if bvh.num_nodes > 0 and native.enabled():
+        out = BvhNodes(
+            bvh.node_min.copy(), bvh.node_max.copy(), bvh.node_left,
+            bvh.node_right, bvh.node_count, bvh.prim_order,
+        )
+        native.refit_bvh_native(out, aabb_min, aabb_max)
+        return out
     n = bvh.num_nodes
     nmin = bvh.node_min.copy()
     nmax = bvh.node_max.copy()

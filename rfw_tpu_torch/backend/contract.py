@@ -8,15 +8,15 @@ directional}_lights, set_skins, set_skybox, synchronize, render, resize.
 The protocol batches `set_*` per-slot calls into (index, view) lists.
 
 Implementations here:
-  * rfw_tpu_torch.render.torch_backend.TorchBackend — the path tracer.
-`rfw_tpu`'s `RecordingBackend`, the test fake that records the sync
-stream, is not copied: the port's tests record with `rfw_tpu`'s.
+  * rfw_tpu_torch.render.torch_backend.TorchBackend — the path tracer;
+  * RecordingBackend — the test fake that records the sync stream, call
+    for call as `rfw_tpu`'s.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Optional, Protocol, Sequence, Tuple, runtime_checkable
+from typing import List, Optional, Protocol, Sequence, Tuple, runtime_checkable
 
 import numpy as np
 
@@ -154,3 +154,77 @@ def init_from_window_handle(backend_cls, window, width: Optional[int] = None,
     backend.resize(width, height, scale)
     return backend
 
+
+class RecordingBackend:
+    """Test fake: records every call in order (the seam the reference never
+    built — SURVEY.md §4 notes a headless Backend would capture the full
+    sync stream)."""
+
+    def __init__(self) -> None:
+        self.calls: List[tuple] = []
+        self.width = 0
+        self.height = 0
+
+    def _rec(self, name: str, *args) -> None:
+        self.calls.append((name,) + args)
+
+    def set_3d_meshes(self, changed):
+        self._rec("set_3d_meshes", [i for i, _ in changed])
+
+    def unload_3d_meshes(self, ids):
+        self._rec("unload_3d_meshes", list(ids))
+
+    def set_3d_instances(self, changed):
+        self._rec("set_3d_instances", [i for i, _ in changed])
+
+    def set_2d_meshes(self, changed):
+        self._rec("set_2d_meshes", [i for i, _ in changed])
+
+    def set_2d_instances(self, changed):
+        self._rec("set_2d_instances", [i for i, _ in changed])
+
+    def set_materials(self, materials, changed):
+        self._rec("set_materials", list(changed), materials.count)
+
+    def set_textures(self, changed):
+        self._rec("set_textures", [i for i, _ in changed])
+
+    def set_skybox(self, skybox):
+        self._rec("set_skybox", skybox)
+
+    def set_point_lights(self, lights):
+        self._rec("set_point_lights", lights.count)
+
+    def set_spot_lights(self, lights):
+        self._rec("set_spot_lights", lights.count)
+
+    def set_area_lights(self, lights):
+        self._rec("set_area_lights", lights.count)
+
+    def set_directional_lights(self, lights):
+        self._rec("set_directional_lights", lights.count)
+
+    def set_skins(self, changed):
+        self._rec("set_skins", [i for i, _ in changed])
+
+    def synchronize(self):
+        self._rec("synchronize")
+
+    def render(self, view_2d, view_3d, mode=RenderMode.DEFAULT):
+        self._rec("render", mode)
+        return np.zeros((self.height, self.width, 4), np.uint8)
+
+    def resize(self, width, height, scale=1.0):
+        self.width, self.height = width, height
+        self._rec("resize", width, height)
+
+    @classmethod
+    def from_window_handle(cls, window, width=None, height=None,
+                           scale=None, settings=None):
+        backend = cls()
+        w, h = window.inner_size()
+        backend.resize(int(width if width is not None else w),
+                       int(height if height is not None else h),
+                       float(scale if scale is not None
+                             else window.scale_factor()))
+        return backend

@@ -35,6 +35,8 @@ import torch
 
 from rfw_tpu_torch.accel.bvh_cpu import TREELET
 from rfw_tpu_torch.render.intersect import Hit, T_MAX, T_MIN
+from rfw_tpu_torch.render.intersect import limit_of as _t_limit
+from rfw_tpu_torch.render.intersect import safe_inv as _safe_inv
 
 ARITY = 8
 STACK_DEPTH = 96
@@ -205,17 +207,7 @@ def _treelet_tables(box, code, cnt, n_treelets: int):
     return tbox, tcount
 
 
-def _t_limit(t_limit, n: int, device) -> torch.Tensor:
-    tl = torch.as_tensor(t_limit, dtype=torch.float32, device=device)
-    return torch.broadcast_to(tl, (n,)).contiguous()
-
-
 # ---------------------------------------------------------------- plain path
-def _safe_inv(x: torch.Tensor) -> torch.Tensor:
-    return 1.0 / torch.where(torch.abs(x) < 1e-20,
-                             torch.where(x < 0, -1e-20, 1e-20), x)
-
-
 def _rebase(ps: PreparedScene, ins, wo, wd):
     """World rays (n,3) in the object space of instance rows `ins` (the
     identity row for -1 or out of range): (ox, oy, oz, dx, dy, dz)."""

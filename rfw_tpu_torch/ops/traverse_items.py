@@ -29,10 +29,14 @@ for tensors on the CPU. The glue (compaction, sort, merge, fallback) is
 plain torch on either device, as it is jnp outside any Pallas kernel in the
 JAX package.
 
+`pallas_twophase_closest_hit` is the public two-phase call without the
+fallback (phase A always by K4, a buffer sized in tiles), as `rfw_tpu`
+exports it.
+
 Left out of the port: the TPU's STILE run alignment (a GPU thread carries
-its own instance, so the capacity C is ceil(R * items_per_ray) alone), its
-VMEM and stream-shape knobs, the tri_hbm tier and the round-2 eager path
-(`pallas_twophase_closest_hit`, `_pack_items`).
+its own instance, so the buffer holds the items back to back; `rfw_tpu`'s
+`_pack_items` is replaced by `compact_entries` and `pack_compact`), its
+VMEM and stream-shape knobs and the tri_hbm tier.
 """
 
 from __future__ import annotations
@@ -63,6 +67,9 @@ DENSE_MAX_TRIS = int(os.environ.get("RFW_DENSE_MAX_TRIS", "4096"))
 #: so every truncated ray of a small front is retraced
 FALLBACK_FRAC = 64
 FALLBACK_ALIGN = 1024
+#: item slots per capacity tile of `pallas_twophase_closest_hit`: rfw_tpu's
+#: LANES, the rays of one Pallas program
+CAPACITY_TILE = 1024
 
 #: kernel launches per kind; each wrapper adds one where it launches
 LAUNCHES = {"items_closest": 0, "items_occluded": 0,
@@ -309,13 +316,13 @@ def _phase_b(ps: PreparedScene, slot_inst, o_s, d_s, tl_s, any_hit: bool,
     return Hit(*[torch.where(dense_k, a, b) for a, b in zip(dn, walk)])
 
 
-def _pack(ps: PreparedScene, ray_o, ray_d, tl_ray, K: int, items_per_ray: float):
-    """Phase A, compaction and the instance sort: (entries, ray_overflow,
-    slot_item, slot_inst, per-slot world rays o_s, d_s, t_limit tl_s with
-    -inf for empty slots)."""
-    R = ray_o.shape[0]
-    ents = _phase_a(ps, ray_o, ray_d, tl_ray, K)
-    cap = math.ceil(R * items_per_ray)
+def _pack(ps: PreparedScene, ray_o, ray_d, tl_ray, K: int, cap: int, ents=None):
+    """Phase A (unless its entries are given), compaction into `cap` slots
+    and the instance sort: (entries, ray_overflow, slot_item, slot_inst,
+    per-slot world rays o_s, d_s, t_limit tl_s with -inf for empty
+    slots)."""
+    if ents is None:
+        ents = _phase_a(ps, ray_o, ray_d, tl_ray, K)
     citem, ray_ovf = compact_entries(ents.inst, cap)
     slot_item, slot_inst = pack_compact(citem, ents.inst.reshape(-1), ps.n_inst)
     ray_id = (torch.clamp(slot_item, min=0) // K).long()
@@ -364,7 +371,7 @@ def twophase_closest_fused(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
     dev = ray_o.device
     tl_ray = _t_limit(t_limit, R, dev)
     ents, ray_ovf, slot_item, slot_inst, o_s, d_s, tl_s = _pack(
-        ps, ray_o, ray_d, tl_ray, K, items_per_ray)
+        ps, ray_o, ray_d, tl_ray, K, math.ceil(R * items_per_ray))
     hs = _phase_b(ps, slot_inst, o_s, d_s, tl_s, False, _dense_on(dense))
     hit = _merge_closest(slot_item, hs, tl_ray, K)
     full = ents.inst[:, K - 1] >= 0
@@ -420,7 +427,7 @@ def twophase_occluded_fused(ps: PreparedScene, ray_o, ray_d, t_limit,
     dev = ray_o.device
     tl_ray = _t_limit(t_limit, R, dev)
     ents, ray_ovf, slot_item, slot_inst, o_s, d_s, tl_s = _pack(
-        ps, ray_o, ray_d, tl_ray, K, items_per_ray)
+        ps, ray_o, ray_d, tl_ray, K, math.ceil(R * items_per_ray))
     occ_s = _phase_b(ps, slot_inst, o_s, d_s, tl_s, True, _dense_on(dense))
     hit_ok = (slot_item >= 0) & occ_s
     rid = torch.where(hit_ok, slot_item // K, R).long()
@@ -448,3 +455,39 @@ def twophase_occluded_with_fallback(ps: PreparedScene, ray_o, ray_d, t_limit,
     out = occ.clone()
     out[idx] = occ[idx] | focc
     return out
+
+
+def pallas_twophase_closest_hit(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
+                                K: int = 8, capacity_tiles: int | None = None):
+    """The public two-phase closest hit, counterpart of `rfw_tpu`'s
+    `pallas_twophase_closest_hit` (the caller retraces): phase A by the
+    TLAS walk (K4), the (ray, entry) items compacted into a buffer of
+    `capacity_tiles` * CAPACITY_TILE slots and sorted by instance, phase B
+    by the items walk (K3), then the per-ray min-t merge. On CPU tensors
+    the kernels' plain versions run. Unlike `rfw_tpu`'s, it takes no
+    TraceScene: `ps` holds the TLAS that phase A walks.
+
+    Returns (Hit, truncated): a truncated ray (full K-list with its best hit
+    beyond the last kept entry, or an item dropped for capacity) may have
+    missed a nearer hit, and is NOT retraced here. A ray with no hit gets
+    t = its t_limit. The default capacity is rfw_tpu's: R*K slots rounded
+    up to whole tiles, plus 16 tiles. The buffer holds the items
+    back to back, without the TPU's STILE alignment of each instance's
+    run, so the capacity at which items drop differs from rfw_tpu's."""
+    R = ray_o.shape[0]
+    dev = ray_o.device
+    tl_ray = _t_limit(t_limit, R, dev)
+    if ps.n_inst == 0:
+        miss = torch.full((R,), -1, dtype=torch.int32, device=dev)
+        z = torch.zeros(R, dtype=torch.float32, device=dev)
+        return (Hit(tl_ray, miss, miss.clone(), z, z.clone()),
+                torch.zeros(R, dtype=torch.bool, device=dev))
+    if capacity_tiles is None:
+        capacity_tiles = max(1, -(-(R * K) // CAPACITY_TILE)) + 16
+    ents = tlas_entries(ps, ray_o, ray_d, tl_ray, K=K)
+    _, ray_ovf, slot_item, slot_inst, o_s, d_s, tl_s = _pack(
+        ps, ray_o, ray_d, tl_ray, K, capacity_tiles * CAPACITY_TILE, ents)
+    hit = _merge_closest(slot_item, items(ps, slot_inst, o_s, d_s, tl_s, False),
+                         tl_ray, K)
+    full = ents.inst[:, K - 1] >= 0
+    return hit, (full & (hit.t > ents.t_entry[:, K - 1])) | ray_ovf

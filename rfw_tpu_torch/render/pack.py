@@ -1,8 +1,10 @@
 """Flatten scene data into packed arenas ("TraceScene").
 
-Host numpy copy of `rfw_tpu/render/pack.py` (with deformed meshes and the
+Host copy of `rfw_tpu/render/pack.py` (with deformed meshes and the
 instance-only repack), kept bit-identical to it so both renderers trace
-the same arenas. All cross-array offsets are pre-applied
+the same arenas: by default both build their BVHs and wide nodes with
+their native C++ libraries (the same source), and under `RFW_NO_NATIVE=1`
+both with numpy. All cross-array offsets are pre-applied
 at pack time, so the traversal never consults an offset table —
 
   * BLAS child indices are rebased into one global node arena;
@@ -23,6 +25,7 @@ import numpy as np
 from rfw_tpu_torch.accel.bvh_cpu import (
     TREELET, BvhNodes, build_bvh_sah, refit_bvh, triangle_aabbs,
 )
+from rfw_tpu_torch import native
 from rfw_tpu_torch.mathx import Aabb, aabb_transform, inverse_transpose3
 from rfw_tpu_torch.models.mesh3d import Mesh3D
 
@@ -664,10 +667,16 @@ def build_widen(bvh: BvhNodes, tlas: bool, leaf_base_offset: int = 0,
 
     `root` collapses the subtree rooted there (merged node arenas).
 
+    Uses the native collapse (`rfw_tpu_torch.native`, the same arrays)
+    unless `RFW_NO_NATIVE=1`; this numpy path is the reference.
     """
     from collections import deque
 
     arity = 1 << depth
+    if native.enabled():
+        built = native.build_widen_native(bvh, tlas, leaf_base_offset, depth, root)
+        if built is not None:
+            return built
 
     n_count = bvh.node_count
     n_left = bvh.node_left

@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rfw_tpu_torch import native
 from rfw_tpu_torch.accel.bvh_cpu import BvhNodes
 from rfw_tpu_torch.accel.tlas_device import build_tlas8_device, tlas8_node_count
 from rfw_tpu_torch.backend.contract import RenderMode, init_from_window_handle
@@ -152,10 +153,13 @@ def apply_skin(mesh: MeshView3D, joint_matrices: np.ndarray,
                positions: Optional[np.ndarray] = None) -> np.ndarray:
     """CPU linear-blend skinning -> deformed positions (reference
     SkinnedMesh3D::apply, rfw-backend/src/structs.rs:785-877; one einsum
-    replaces the rayon par_iter): the numpy path of `rfw_tpu`'s
-    `apply_skin`. `positions` overrides the rest pose (glTF order: morph
-    targets apply BEFORE the skin)."""
+    replaces the rayon par_iter), as `rfw_tpu`'s `apply_skin`: the native
+    skin unless `RFW_NO_NATIVE=1`, else numpy. `positions` overrides the
+    rest pose (glTF order: morph targets apply BEFORE the skin)."""
     p = mesh.positions if positions is None else positions
+    if native.enabled():
+        return native.skin_positions_native(p, mesh.joints, mesh.weights,
+                                            joint_matrices)
     jm = joint_matrices[mesh.joints]  # (V,4,4,4)
     w = mesh.weights  # (V,4)
     blended = np.einsum("vj,vjab->vab", w, jm)  # (V,4,4)

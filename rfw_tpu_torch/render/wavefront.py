@@ -12,7 +12,8 @@ per pixel:
     NEE with a shadow ray, AOV capture and a BSDF bounce;
   * middle vertices (1..max_bounces-1) and the final vertex (NEE only)
     first re-sort the path state by (direction octant, origin Morton code)
-    with dead lanes last, then trace and shade the live prefix;
+    with dead lanes last, then trace and shade the live prefix (the
+    lockstep tier keeps the lanes in order and traces all of them);
   * radiance returns in pixel order through the carried pixel id `pid`.
 
 Every per-lane quantity is computed as in the JAX package, operation for
@@ -26,18 +27,36 @@ among static prefix lengths on the device (`lax.switch`), this port reads
 the live count to the host with `.item()` and slices the prefix — the
 reference GPU renderer reads its queue counters back the same way.
 
-Traversal: `config.traversal="auto"` calls `ops.traverse.closest_hit` /
-`occluded`, which launch the CUDA kernel for tensors on the card and run
-the plain torch walk for tensors on the CPU; `"lockstep"` runs the plain
-walk on any device. With `"auto"`, `two_phase="auto"` or `"on"` traces the
-bounce rays' closest hits through the two-phase path
-(`ops.traverse_items.twophase_closest_with_fallback`: instance entries,
-per-instance BLAS walks, classic retrace of truncated rays), and
-`RFW_TP_SHADOW=1` their shadow rays through its any-hit twin; primaries
-and vertex-0 shadows stay on the classic kernel. `RFW_DENSE_ITEMS=1` turns
-on the dense items tier inside it. With `"lockstep"` two-phase is off, as
-it is in the JAX package outside its kernel tier. The rest of the pipeline
-(swizzle, sorts, compaction) is the same for every traversal.
+Traversal, as `config.traversal` names it (`resolve_traversal`), in
+three tiers:
+
+  * the kernel tier — "auto", "pallas" and "pallas_hbm": `ops.traverse.
+    closest_hit` / `occluded`, which launch the CUDA kernels (K1/K2) for
+    tensors on the card and run their plain torch walks for tensors on the
+    CPU. `two_phase="auto"` or `"on"` traces the bounce rays' closest hits
+    through the two-phase path (`ops.traverse_items.
+    twophase_closest_with_fallback`: instance entries, per-instance BLAS
+    walks by K3, classic retrace of truncated rays), and `RFW_TP_SHADOW=1`
+    their shadow rays through its any-hit twin; primaries and vertex-0
+    shadows stay on the classic kernel. `RFW_DENSE_ITEMS=1` turns on the
+    dense items tier inside it. On the card the treelets are read from
+    global memory for both Pallas names;
+  * the packet tier — "packet": `render.packet` (tiles sharing one stack);
+  * the lockstep tier — "lockstep", and "packet" when no tile width
+    divides R: `render.intersect.bvh_closest_hit` / `bvh_occluded`, the
+    per-ray walk of the binary arenas (the oracle tier).
+
+The name also sets the lane order, as in the JAX package: the
+pixel-block swizzle, the bounce sort and the compaction use the tile
+width, which is PALLAS_LANES (1,024) for "pallas" and "pallas_hbm" when R
+is a multiple of it and the first of (config.lanes, 512, 256, 128, 64,
+32) that divides R otherwise; "lockstep" keeps lanes in pixel order, with
+no swizzle, no sort and no compaction. Two-phase runs for "auto", and for
+the Pallas names at R a multiple of PALLAS_LANES; at other R the JAX
+package traces the Pallas names with its packet tier, and the port keeps
+them on the kernels in that tier's lane order with two-phase off. Under
+the random sampler the lane order decides which pixel draws which
+numbers, so each name renders the same image as the JAX package's.
 """
 
 from __future__ import annotations
@@ -50,13 +69,7 @@ import numpy as np
 import torch
 
 from rfw_tpu_torch.accel.lbvh import morton_codes_c
-from rfw_tpu_torch.ops.traverse import (
-    closest_hit,
-    closest_hit_plain,
-    occluded,
-    occluded_plain,
-    prepare_scene,
-)
+from rfw_tpu_torch.ops.traverse import closest_hit, occluded, prepare_scene
 from rfw_tpu_torch.ops.traverse_items import (
     twophase_closest_with_fallback,
     twophase_occluded_with_fallback,
@@ -67,12 +80,20 @@ from rfw_tpu_torch.render.disney import (
     Vec3C, _luminance_c, v3_add, v3_cross, v3_dot, v3_mul, v3_neg,
     v3_normalize, v3_scale, v3_stack, v3_sub, v3_where,
 )
-from rfw_tpu_torch.render.intersect import Hit, T_MAX
+from rfw_tpu_torch.render.intersect import Hit, T_MAX, bvh_closest_hit, bvh_occluded
+from rfw_tpu_torch.render.packet import (
+    packet_closest_hit, packet_occluded, prepare_packet_scene,
+)
 from rfw_tpu_torch.render import threefry
 from rfw_tpu_torch.render.lights_pack import DeviceLights
 from rfw_tpu_torch.render.sampler import sample_slot
 
 PI = 3.14159265358979
+#: the values of RenderConfig.traversal
+TRAVERSALS = ("auto", "lockstep", "packet", "pallas", "pallas_hbm")
+#: tile width of the kernel tier ("pallas", "pallas_hbm"): rfw_tpu's
+#: LANES8, 8 x 128 rays
+PALLAS_LANES = 1024
 
 #: padded light-table row cap for the per-point potential-weighted pick;
 #: above it the global power CDF picks
@@ -111,11 +132,10 @@ def _fetch_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class RenderConfig:
-    """Integrator settings, with the JAX package's fields and defaults.
-
-    Ported here: sampler "random" (threefry, needs `key`) or "sobol"
-    (needs `sample_index`), two_phase "auto"/"on"/"off", traversal "auto"
-    or "lockstep"."""
+    """Integrator settings, with the JAX package's fields and defaults:
+    sampler "random" (threefry, needs `key`) or "sobol" (needs
+    `sample_index`), two_phase "auto"/"on"/"off", traversal one of
+    TRAVERSALS."""
 
     max_bounces: int = 3
     clamp: float = 10.0
@@ -125,9 +145,13 @@ class RenderConfig:
     ao_aov: bool = False  # ambient-occlusion AOV: one cosine-hemisphere
     #   occlusion probe per first hit
     ao_radius: float = 0.5
-    traversal: str = "auto"  # "auto" (kernel on CUDA tensors, plain walk
-    #   on CPU tensors) | "lockstep" (plain walk on any device)
-    lanes: int = 256  # ray tile width: pixel-block swizzle and prefix grain
+    traversal: str = "auto"  # "auto" | "pallas" | "pallas_hbm" (the
+    #   kernels at any R: on CUDA tensors the kernels, on CPU tensors their
+    #   plain walks) | "packet" (tiles of `lanes` rays sharing a stack) |
+    #   "lockstep" (one stack per ray, binary arenas, lanes in pixel order)
+    lanes: int = 256  # ray tile width of "auto" and "packet" (and of the
+    #   Pallas names where R is no multiple of PALLAS_LANES): pixel-block
+    #   swizzle, packet tiles and prefix grain
     pixel_center: bool = False  # deterministic pixel-center primaries
     sampler: str = "random"  # "random" (threefry, per-lane uniforms from
     #   `key`) | "sobol" (Owen-scrambled Sobol keyed by pixel and
@@ -140,14 +164,15 @@ class RenderConfig:
     #   mat_feature_mask() computes it
     sort_secondary: bool = True  # re-sort bounce rays by (direction
     #   octant, origin Morton code), dead lanes last
-    two_phase: str = "auto"  # "auto" | "on" | "off": with traversal
-    #   "auto", bounce rays' closest hits go through the two-phase path
+    two_phase: str = "auto"  # "auto" | "on" | "off": in the kernel tier,
+    #   bounce rays' closest hits go through the two-phase path
     #   (instance entries, per-instance BLAS walks, classic retrace of
     #   truncated rays); "off" traces every ray with the classic kernel
     has_area_lights: bool = True  # the scene has area lights (else the
     #   NEE<->BSDF MIS machinery is skipped)
     compaction: str = "auto"  # "auto" | "off": bounce vertices run on the
     #   live prefix at the smallest of a few lengths >= the live count
+    #   (with the bounce sort, outside the lockstep tier)
     tp_K: int = 6  # two-phase: instance entries kept per ray
     tp_items_per_ray: float = 1.25  # two-phase: item buffer slots per ray
     #   (items beyond it are dropped and their rays retraced)
@@ -652,6 +677,93 @@ def _pick_prefix(sizes: list, live: int) -> int:
     return sizes[sum(int(live > p) for p in sizes[:-1])]
 
 
+class Tier(NamedTuple):
+    """How a render traces its rays (`resolve_traversal`)."""
+
+    trace: str  # "kernel" (ops.traverse) | "packet" | "lockstep"
+    lanes: int  # tile width: pixel-block swizzle and prefix grain (0: none)
+    two_phase: bool  # bounce rays may take the two-phase path
+
+
+def resolve_traversal(config: RenderConfig, R: int) -> Tier:
+    """The tier that traces a render of R rays, as `rfw_tpu`'s
+    render_sample resolves `config.traversal`, with the lane order of
+    `rfw_tpu`'s tier of that name:
+
+      * "pallas" / "pallas_hbm" with R a multiple of PALLAS_LANES: the
+        kernels, tiles of PALLAS_LANES, two-phase as `config.two_phase`;
+      * "pallas" / "pallas_hbm" otherwise: the kernels in the lane order
+        of `rfw_tpu`'s packet branch, which these names take there: tiles
+        of the first of (config.lanes, 512, 256, 128, 64, 32) that divides
+        R (0: none), two-phase off;
+      * "auto": the kernels, tiles of that first divisor, two-phase as
+        `config.two_phase`;
+      * "packet": the packet tier, tiles of that first divisor, or the
+        lockstep tier where none divides R;
+      * "lockstep": the lockstep tier, no tiles.
+    """
+    mode = config.traversal
+    if mode not in TRAVERSALS:
+        raise ValueError(f"traversal={mode!r}: expected one of {TRAVERSALS}")
+    pallas = mode in ("pallas", "pallas_hbm")
+    if pallas and R % PALLAS_LANES == 0:
+        return Tier("kernel", PALLAS_LANES, True)
+    if mode == "lockstep":
+        return Tier("lockstep", 0, False)
+    lanes = next((l for l in (config.lanes, 512, 256, 128, 64, 32) if R % l == 0), 0)
+    if mode == "auto":
+        return Tier("kernel", lanes, True)
+    if pallas:
+        return Tier("kernel", lanes, False)
+    return Tier("packet", lanes, False) if lanes else Tier("lockstep", 0, False)
+
+
+def _tracers(scene, config: RenderConfig, tier: Tier):
+    """(closest, occluded, bounce closest, bounce occluded) trace functions
+    of (ray_o, ray_d, t_limit) for a tier. Where the tier allows it, the
+    kernels trace bounce rays' closest hits through the two-phase path when
+    `two_phase` is "auto" or "on", and their shadow rays too with
+    RFW_TP_SHADOW=1."""
+    lanes = tier.lanes
+    if tier.trace == "lockstep":
+        def closest(o, d, tl):
+            return bvh_closest_hit(scene, o, d, tl)
+
+        def occl(o, d, tl):
+            return bvh_occluded(scene, o, d, tl)
+
+        return closest, occl, closest, occl
+    if tier.trace == "packet":
+        pps = prepare_packet_scene(scene)
+
+        def closest(o, d, tl):
+            return packet_closest_hit(pps, o, d, tl, lanes=lanes)
+
+        def occl(o, d, tl):
+            return packet_occluded(pps, o, d, tl, lanes=lanes)
+
+        return closest, occl, closest, occl
+    ps = prepare_scene(scene)
+
+    def closest(o, d, tl):
+        return closest_hit(ps, o, d, tl)
+
+    def occl(o, d, tl):
+        return occluded(ps, o, d, tl)
+
+    bounce, occl_bounce = closest, occl
+    if tier.two_phase and config.two_phase in ("auto", "on"):
+        def bounce(o, d, tl):
+            return twophase_closest_with_fallback(
+                ps, o, d, tl, K=config.tp_K, items_per_ray=config.tp_items_per_ray)
+
+        if os.environ.get("RFW_TP_SHADOW", "0") == "1":
+            def occl_bounce(o, d, tl):
+                return twophase_occluded_with_fallback(
+                    ps, o, d, tl, K=config.tp_K, items_per_ray=config.tp_items_per_ray)
+    return closest, occl, bounce, occl_bounce
+
+
 def render_sample(
     scene,  # TraceScene of tensors (rfw_tpu_torch.convert)
     mats,  # DeviceMaterials of tensors
@@ -686,33 +798,15 @@ def render_sample(
             "threefry and needs a key")
     if config.two_phase not in ("auto", "on", "off"):
         raise ValueError(f"two_phase={config.two_phase!r}")
-    if config.traversal == "auto":
-        trace_closest, trace_occluded = closest_hit, occluded
-    elif config.traversal == "lockstep":
-        trace_closest, trace_occluded = closest_hit_plain, occluded_plain
-    else:
-        raise ValueError(
-            f"traversal={config.traversal!r}: expected 'auto' or 'lockstep'")
-    trace_bounce, trace_occluded_bounce = trace_closest, trace_occluded
-    if config.traversal == "auto" and config.two_phase in ("auto", "on"):
-        def trace_bounce(ps, o, d, tl):
-            return twophase_closest_with_fallback(
-                ps, o, d, tl, K=config.tp_K, items_per_ray=config.tp_items_per_ray)
-
-        if os.environ.get("RFW_TP_SHADOW", "0") == "1":
-            def trace_occluded_bounce(ps, o, d, tl):
-                return twophase_occluded_with_fallback(
-                    ps, o, d, tl, K=config.tp_K,
-                    items_per_ray=config.tp_items_per_ray)
-
     dev = view.device
     f32 = torch.float32
     R = width * height
-    ps = prepare_scene(scene)
     inst_table = _inst_table(scene)
+    tier = resolve_traversal(config, R)
+    tile_lanes = tier.lanes
+    trace_closest, trace_occluded, trace_bounce, trace_occluded_bounce = _tracers(
+        scene, config, tier)
 
-    tile_lanes = next(
-        (l for l in (config.lanes, 512, 256, 128, 64, 32) if R % l == 0), 0)
     sw = _block_swizzle(width, height, tile_lanes, dev) if tile_lanes else None
     if sw is not None:
         px, py, _ = sw
@@ -842,7 +936,6 @@ def render_sample(
                     disney._sample_cosine_c(u_ao[:, 0], u_ao[:, 1]),
                 )
                 occ_ao = trace_occluded(
-                    ps,
                     v3_stack(v3_add(pos, v3_scale(basis["ng"], config.shadow_eps))),
                     v3_stack(wi_ao),
                     config.ao_radius,
@@ -921,7 +1014,7 @@ def render_sample(
         # zero-contribution lanes get t_limit 0 and leave at once; bounce
         # vertices may take the two-phase any hit (RFW_TP_SHADOW=1)
         occ = (trace_occluded if first else trace_occluded_bounce)(
-            ps, v3_stack(shadow_o), v3_stack(wi_l),
+            v3_stack(shadow_o), v3_stack(wi_l),
             torch.where(can_light, dist_l - 2.0 * config.shadow_eps, 0.0))
         if config.has_area_lights:
             pdf_b_l = disney.disney_pdf_c(params, wo, wi_local,
@@ -976,7 +1069,10 @@ def render_sample(
         ), aovs
 
     # ------------------------------------------------- bounce-vertex step
-    do_sort = config.sort_secondary and config.max_bounces >= 1
+    # "lockstep" keeps lanes in pixel order: no sort, no compaction ("packet"
+    # traced by the lockstep tier where no tile width divides R still sorts)
+    do_sort = (config.sort_secondary and config.traversal != "lockstep"
+               and config.max_bounces >= 1)
     compact_on = do_sort and config.compaction == "auto"
     g = max(tile_lanes, 1)
     sizes = _prefix_sizes(R, g, config.max_bounces) if compact_on else [R]
@@ -1004,7 +1100,7 @@ def render_sample(
         else:
             pre = _tmap(lambda a: a[:n], st)
             suf = _tmap(lambda a: a[n:], st)
-        hit = trace_bounce(ps, v3_stack(pre.ray_o), v3_stack(pre.ray_d),
+        hit = trace_bounce(v3_stack(pre.ray_o), v3_stack(pre.ray_d),
                            torch.where(pre.alive, T_MAX, 0.0))
         new_pre, _ = shade_vertex(pre, hit, depth, first=False, last=last)
         if suf is None:
@@ -1021,7 +1117,7 @@ def render_sample(
         return _trace_and_shade(st, depth, last, _pick_prefix(sizes, live))
 
     # ------------------------------------------------------- vertex 0
-    hit0 = trace_closest(ps, v3_stack(ray_o), v3_stack(ray_d), T_MAX)
+    hit0 = trace_closest(v3_stack(ray_o), v3_stack(ray_d), T_MAX)
     found0 = hit0.prim >= 0
     sky0 = _sky(ray_d)
     rad0 = tuple(torch.where(found0, 0.0, sky0[j]) for j in range(3))

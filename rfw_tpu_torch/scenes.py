@@ -7,7 +7,8 @@ gives 4 icosphere meshes of 20,480 triangles with 64 instances each, a
 textured floor slab, an emissive quad (2 area lights), two spots and a sun
 (122,880 triangle rows, 512 instance-arena rows); `build_heavy_scene`
 gives the instance-heavy scene of any instance count. Both pack with the
-port's own numpy packers and return host arrays; `convert.from_numpy_scene`
+port's own packers (the native BVH builder unless `RFW_NO_NATIVE=1`) and
+return host arrays; `convert.from_numpy_scene`
 carries them to the card. `chip_smoke.py` and the microbenchmarks in
 `rfw_tpu_torch.tools` drive them.
 """
@@ -21,7 +22,7 @@ import numpy as np
 
 def build_scene(seed: int, views: bool = False):
     """Procedural scene at the flagship scale, packed by the port's own
-    numpy packers. Returns (TraceScene, DeviceMaterials, DeviceLights,
+    packers. Returns (TraceScene, DeviceMaterials, DeviceLights,
     TextureAtlas, Camera3D, pack seconds), host arrays; with views=True
     also what a backend is fed to pack the same arenas: a dict of the
     meshes and instances as `pack_trace_scene` took them, the `Materials`,

@@ -21,6 +21,7 @@ containers and arrays.
 from __future__ import annotations
 
 import base64
+import contextlib
 import copy
 import dataclasses
 import enum
@@ -424,3 +425,39 @@ def probe_rays(n: int, seed: int):
     d = target - o
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return o, d.astype(np.float32)
+
+
+def unique_closest(scene, o, d):
+    """Per ray, whether its closest hit's t is unique in `scene`: the
+    brute-force second hit lies more than 1e-6 relative beyond the first
+    (False for a miss). Exact-t ties may resolve either way in two walks."""
+    v0, e1, e2, _ = world_triangles(scene)
+    pv = np.cross(d[:, None], e2[None])
+    det = np.sum(e1[None] * pv, -1)
+    inv = np.where(np.abs(det) > 1e-12, 1.0 / np.where(det == 0, 1, det), 0.0)
+    tv = o[:, None] - v0[None]
+    u = np.sum(tv * pv, -1) * inv
+    q = np.cross(tv, e1[None])
+    v = np.sum(d[:, None] * q, -1) * inv
+    t = np.sum(e2[None] * q, -1) * inv
+    t = np.where((np.abs(det) > 1e-12) & (u >= -1e-7) & (v >= -1e-7) & (u + v <= 1 + 1e-7)
+                 & (t > 1e-5), t, np.inf)
+    ts = np.sort(t, axis=1)
+    with np.errstate(invalid="ignore"):
+        return ts[:, 1] - ts[:, 0] > 1e-6 * ts[:, 0]
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Run torch single-threaded inside the block. The plain walks issue
+    hundreds of small ops a step; when the suite's parallel workers share
+    the cores, torch's per-op thread pools oversubscribe them and each op
+    waits on its pool (a 1 s render took minutes)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)

@@ -50,7 +50,8 @@ print("imported", len(names))
 #: backend layer and the host copies it needs, the scene and app layer,
 #: the loaders, the font plugin and the numpy oracle, the device
 #: dynamics and the threefry sampler, the scale-out layer and the PNG
-#: writer, beside the renderer's)
+#: writer, the native host runtime, the packet and lockstep tiers and
+#: the device LBVH, beside the renderer's)
 MODULES = [
     "rfw_tpu_torch.backend.contract", "rfw_tpu_torch.backend.structs",
     "rfw_tpu_torch.backend.lights", "rfw_tpu_torch.models.mesh2d",
@@ -76,6 +77,9 @@ MODULES = [
     "rfw_tpu_torch.accel.tlas_device", "rfw_tpu_torch.accel.lbvh",
     "rfw_tpu_torch.parallel", "rfw_tpu_torch.parallel.mesh",
     "rfw_tpu_torch.parallel.distributed", "rfw_tpu_torch.utils.png",
+    "rfw_tpu_torch.native", "rfw_tpu_torch.render.packet",
+    "rfw_tpu_torch.render.intersect", "rfw_tpu_torch.render.twophase",
+    "rfw_tpu_torch.ops",
 ]
 
 
@@ -109,8 +113,14 @@ def test_no_jax_or_rfw_tpu_import(path):
 
 
 def test_importing_builds_nothing():
-    """The CUDA build happens at first use only: importing the kernel
-    modules loads no kernel library."""
-    from rfw_tpu_torch.ops import _build, traverse, traverse_entries, traverse_items  # noqa: F401
-
-    assert _build._LIBS == {}
+    """The CUDA and the native builds happen at first use only: importing
+    the modules loads no kernel library and no native library."""
+    script = (
+        "import rfw_tpu_torch.ops, rfw_tpu_torch.native\n"
+        "from rfw_tpu_torch.ops import _build, traverse, traverse_entries, traverse_items\n"
+        "from rfw_tpu_torch.render import pack, packet, intersect, twophase, wavefront\n"
+        "from rfw_tpu_torch.accel import bvh_cpu, lbvh\n"
+        "assert _build._LIBS == {} and rfw_tpu_torch.native._LIB is None\n")
+    out = subprocess.run([sys.executable, "-c", script], env=dict(os.environ, PYTHONPATH=str(REPO)),
+                         cwd=str(REPO), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]

@@ -1,8 +1,9 @@
 """The port's host packers give bit-identical arrays to rfw_tpu's.
 
-rfw_tpu builds BVHs with its native C++ builder when available; the port
-carries only the numpy builder, so the reference runs with RFW_NO_NATIVE=1
-(its own numpy path). Tolerance: none — np.array_equal on every field.
+Both packages build BVHs with their native C++ builders by default
+(`tests/test_torch_native.py` holds those against each other); here both
+run their numpy paths (RFW_NO_NATIVE=1, which each package reads).
+Tolerance: none — np.array_equal on every field.
 """
 
 import dataclasses
@@ -24,9 +25,9 @@ def both(request):
     mp.setenv("RFW_NO_NATIVE", "1")
     try:
         ref = _torch_scene.build("rfw_tpu", **CASES[request.param])
+        port = _torch_scene.build("rfw_tpu_torch", **CASES[request.param])
     finally:
         mp.undo()
-    port = _torch_scene.build("rfw_tpu_torch", **CASES[request.param])
     return ref, port
 
 
@@ -80,7 +81,7 @@ def test_bvh_build_matches_reference_numpy_path():
     c = rng.uniform(-10, 10, (500, 3)).astype(np.float32)
     mn, mx = c - 0.2, c + rng.uniform(0.1, 1.0, (500, 3)).astype(np.float32)
     a = ref_build(mn, mx, max_leaf=8, use_native=False)
-    b = build_bvh_sah(mn, mx, max_leaf=8)
+    b = build_bvh_sah(mn, mx, max_leaf=8, use_native=False)
     for f in dataclasses.fields(a):
         assert np.array_equal(getattr(a, f.name), getattr(b, f.name)), f.name
 

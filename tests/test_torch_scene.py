@@ -153,6 +153,26 @@ def test_streams_cover_the_contract(synced):
     assert seen == set(_torch_scene.STREAM) - {"set_skins"}, seen
 
 
+def test_recording_backend_streams_match():
+    """The port's RecordingBackend, the contract's test fake: through the
+    same edit steps, a render and a resize it records the calls rfw_tpu's
+    records (names, ids, counts, modes), in the same order."""
+    calls = {}
+    for pkg in PKGS:
+        scene, ids = author(pkg)
+        be = mod(pkg, "backend.contract").RecordingBackend()
+        be.resize(64, 48)
+        for step in STEPS:
+            step(pkg, scene, ids)
+            scene.synchronize(be)
+        frame = be.render(None, None)
+        assert frame.shape == (48, 64, 4) and frame.dtype == np.uint8
+        be.resize(32, 16)
+        calls[pkg] = be.calls
+    same(calls["rfw_tpu"], calls["rfw_tpu_torch"])
+    assert {c[0] for c in calls["rfw_tpu_torch"]} >= set(_torch_scene.STREAM) - {"set_skins"}
+
+
 def test_sync_full_replays_everything():
     """A second backend needs a full re-trigger (`sync_full`); both
     packages give it the same stream."""

@@ -14,7 +14,18 @@ Tolerances:
     order where the kernel takes children nearest first: t_entry
     bit-identical; per ray and per distinct t the same instance ids, but at
     a full list's K-th kept t, where another of several equal-t entries may
-    be kept.
+    be kept;
+  * the plain reference path (`render.twophase.tlas_entries`,
+    `_blas_walk_items`, `twophase_closest_hit`) against rfw_tpu's: exact,
+    every output (the same walks in the same arithmetic);
+  * the public call `ops.pallas_twophase_closest_hit` (its plain versions
+    on the CPU) against rfw_tpu's with `interpret=True`: on rays neither
+    marks truncated the same hit masks, t within rtol 3e-5 (the Pallas
+    kernels' approximate reciprocal, as in `test_torch_traverse.py`) and
+    prim, inst equal where the closest t is unique; with an ample buffer
+    the same truncated masks, but on rays whose hit t lies within that
+    tolerance of the last kept entry t, where the two t may fall either
+    side of it.
 """
 
 import jax.numpy as jnp
@@ -31,6 +42,12 @@ from rfw_tpu_torch.render.twophase import dense_tlas_entries
 
 R = 1024
 K = 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with _torch_scene.one_torch_thread():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +68,8 @@ def setup():
     tl[::7] = 0.0  # dead lanes
     jscene = JScene(*[jnp.asarray(x) for x in scene])
     return dict(scene=scene, jscene=jscene, jps=prepare_pallas_scene(jscene),
-                ps=tr.prepare_scene(tscene), o=o, d=d, tl=tl)
+                ps=tr.prepare_scene(tscene), o=o, d=d, tl=tl, mats=mats, lights=lights,
+                atlas=atlas)
 
 
 def _torch_rays(s):
@@ -196,3 +214,104 @@ def test_entries_kernel_matches_plain_on_card(setup):
         at_kth = (t == kth) & torch.isfinite(kth)
         assert torch.equal(gi[~at_kth], ri[~at_kth])
     assert te.LAUNCHES["entries"] == before + 3
+
+
+# ---- the plain reference path and the public call
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_reference_tlas_entries_match_jax(setup, k):
+    from rfw_tpu.render.twophase import tlas_entries as jwalk
+    from rfw_tpu_torch.render import twophase as tt
+
+    o, d, tl = _torch_rays(setup)
+    sc = setup["scene"]
+    got = tt.tlas_entries(torch.from_numpy(sc.tlas_wide_f), torch.from_numpy(sc.tlas_wide_i),
+                          o, d, tl, K=k)
+    ref = jwalk(jnp.asarray(sc.tlas_wide_f), jnp.asarray(sc.tlas_wide_i),
+                jnp.asarray(setup["o"]), jnp.asarray(setup["d"]), jnp.asarray(setup["tl"]), K=k)
+    assert np.array_equal(got.t_entry.numpy(), np.asarray(ref.t_entry))
+    assert np.array_equal(got.inst.numpy(), np.asarray(ref.inst))
+    assert (got.inst >= 0).any() and not (got.inst[::7] >= 0).any()
+
+
+def test_reference_blas_walk_items_match_jax(setup):
+    """Per-item BLAS walks of one instance each, on object-space rays
+    (every ray against every instance, one item each)."""
+    from rfw_tpu.render.twophase import _blas_walk_items as jwalk
+    from rfw_tpu_torch.render import twophase as tt
+
+    sc = setup["scene"]
+    n_inst = int((sc.inst_mesh >= 0).sum())
+    rng = np.random.default_rng(6)
+    inst = rng.integers(0, n_inst, R)
+    inv = sc.inst_inv[inst][:, :3, :].astype(np.float64)
+    o_obj = (np.einsum("nab,nb->na", inv[:, :, :3], setup["o"]) + inv[:, :, 3]).astype(np.float32)
+    d_obj = np.einsum("nab,nb->na", inv[:, :, :3], setup["d"]).astype(np.float32)
+    roots = sc.blas_wide_root[inst]
+    valid = np.arange(R) % 5 != 0
+    tscene = from_numpy_scene(sc, *[setup[k] for k in ("mats", "lights", "atlas")], "cpu")[0]
+    got = tt._blas_walk_items(tscene, torch.from_numpy(o_obj), torch.from_numpy(d_obj),
+                              torch.from_numpy(roots), torch.from_numpy(valid), 20.0)
+    ref = jwalk(setup["jscene"], jnp.asarray(o_obj), jnp.asarray(d_obj), jnp.asarray(roots),
+                jnp.asarray(valid), 20.0)
+    for a, b in zip(got, ref):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    assert (got[1] >= 0).sum() > 32 and not (got[1].numpy()[~valid] >= 0).any()
+
+
+@pytest.mark.parametrize("k", [2, 8])
+def test_reference_twophase_closest_hit_matches_jax(setup, k):
+    from rfw_tpu.render.twophase import twophase_closest_hit as jcall
+    from rfw_tpu_torch.render import twophase as tt
+
+    o, d, _ = _torch_rays(setup)
+    tscene = from_numpy_scene(setup["scene"], *[setup[n] for n in ("mats", "lights", "atlas")],
+                              "cpu")[0]
+    hit, trunc = tt.twophase_closest_hit(tscene, o, d, K=k)
+    jhit, jtrunc = jcall(setup["jscene"], jnp.asarray(setup["o"]), jnp.asarray(setup["d"]), K=k)
+    for a, b in zip(hit, jhit):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    assert np.array_equal(trunc.numpy(), np.asarray(jtrunc))
+    assert (hit.prim >= 0).sum() > R // 4 and (k == 8 or trunc.any())
+
+
+def test_public_twophase_call_matches_pallas_interpret(setup):
+    from rfw_tpu.ops import pallas_twophase_closest_hit as jcall
+    from rfw_tpu_torch import ops
+
+    o, d, _ = _torch_rays(setup)
+    hit, trunc = ops.pallas_twophase_closest_hit(setup["ps"], o, d, K=K)
+    jhit, jtrunc = jcall(setup["jps"], setup["jscene"], jnp.asarray(setup["o"]),
+                         jnp.asarray(setup["d"]), K=K, interpret=True)
+    trunc, jtrunc = trunc.numpy(), np.asarray(jtrunc)
+    live = ~trunc & ~jtrunc
+    hm, jm = hit.prim.numpy() >= 0, np.asarray(jhit.prim) >= 0
+    assert np.array_equal(hm[live], jm[live]) and hm[live].sum() > R // 4
+    both = live & hm
+    np.testing.assert_allclose(hit.t.numpy()[both], np.asarray(jhit.t)[both], rtol=3e-5)
+    uq = both & _torch_scene.unique_closest(setup["scene"], setup["o"], setup["d"])
+    assert uq.sum() > 0.9 * both.sum()
+    assert np.array_equal(hit.prim.numpy()[uq], np.asarray(jhit.prim)[uq])
+    assert np.array_equal(hit.inst.numpy()[uq], np.asarray(jhit.inst)[uq])
+    # the truncated masks agree but where the hit t is within the t
+    # tolerance of the last kept entry
+    last = te.tlas_entries(setup["ps"], o, d, K=K).t_entry[:, K - 1].numpy()
+    edge = np.isfinite(last) & (np.abs(np.asarray(jhit.t) - last) <= 3e-5 * last)
+    assert trunc.any() and np.array_equal(trunc[~edge], jtrunc[~edge])
+
+
+def test_public_twophase_call_marks_dropped_items(setup):
+    """A buffer of one tile (1,024 slots for R*K items) drops items: their
+    rays come back truncated, and every other ray keeps the hit it gets
+    from an ample buffer."""
+    from rfw_tpu_torch import ops
+
+    o, d, _ = _torch_rays(setup)
+    ample, a_trunc = ops.pallas_twophase_closest_hit(setup["ps"], o, d, K=K)
+    small, s_trunc = ops.pallas_twophase_closest_hit(setup["ps"], o, d, K=K,
+                                                     capacity_tiles=1)
+    assert int(s_trunc.sum()) > int(a_trunc.sum())
+    keep = ~s_trunc
+    for a, b in zip(ample, small):
+        assert torch.equal(a[keep], b[keep])

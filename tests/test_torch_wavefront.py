@@ -132,7 +132,7 @@ def test_compaction_and_sort_do_not_change_pixels(scene):
 
 @pytest.mark.parametrize("bad,exc", [(dict(sampler="random"), ValueError),
                                      (dict(two_phase="maybe"), ValueError),
-                                     (dict(traversal="pallas"), ValueError)])
+                                     (dict(traversal="bogus"), ValueError)])
 def test_unported_options_raise(scene, bad, exc):
     """Unknown options raise; so does the random sampler without a key."""
     kw = {**_cfg_kwargs(scene[1], 1), **bad}
