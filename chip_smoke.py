@@ -181,7 +181,21 @@ Phases (any failed check raises, so the script exits nonzero):
      its launches counted, its hits against K1's on the rays it does not
      mark truncated (check_nearest), its time against K1's; (d)
      build_lbvh_device on the heavy scene's 10,000 instance boxes on the
-     card against the CPU (bit for bit), with its time.
+     card against the CPU (bit for bit), with its time;
+ 15. the measurement entry point and its tools: (a) `python -m
+     rfw_tpu_torch.bench` (rfw_tpu_torch.bench.main) at 1920x1080, 8
+     samples, 3 repeats, with --two-phase off and auto: each JSON line
+     parsed (a positive value, a finite film), and the launches of each
+     whole run (counters reset just before it, read just after) a sample:
+     K1 2, K2 2 under "off", and K3 1 besides under "auto"; (b) each layer
+     tool of rfw_tpu_torch.tools (bisect_e2e, profile_e2e, bench_traverse
+     with --occluded --tp-occluded --stats, bench_items plain, --fused and
+     --breakdown --pallas-A, check_traverse, diag_live) at the reference
+     tools' default sizes on the flagship scene, its line logged:
+     check_traverse's gate must pass, bench_items and the two-phase any hit
+     must agree with K1/K2; (c) examples/torch_animated.py at 64x36, 2
+     frames, --no-pica, with a skinned glTF written here as its CesiumMan:
+     two PNGs, its second frame's sync by the device skin and refit route.
 The tests that need a card (tests/test_torch_*.py, `*_on_card`) cannot run
 where the card is (their conftest imports jax); these phases make their
 checks (.claude/skills/verify/SKILL.md maps each test to its phase).
@@ -202,8 +216,9 @@ it; no single PyTorch call computes a BVH traversal or either
 microbenchmark, so library_ms is null; launches_app is its launches in
 phase 11's first frame, launches_dynamics in phase 12's first dynamic
 frame (its sync and its render), launches_parallel in phase 13's
-counted film strip, launches_tiers in phase 14's "pallas" frame and
-launches_twophase_call in its public two-phase call. The last line is
+counted film strip, launches_tiers in phase 14's "pallas" frame,
+launches_twophase_call in its public two-phase call and launches_bench in
+phase 15's "auto" bench run (25 samples: the warm-up and 3 x 8). The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -311,7 +326,8 @@ def bits(x: torch.Tensor) -> torch.Tensor:
 
 def check_nearest(card, label, kh, ph, name, live=None) -> float:
     """Hold a nearest-first walk (K1, K3) against the plain walk in the
-    TPU's order: hit masks identical; t bit-identical where both hit, but
+    TPU's order under K1's gate (`rfw_tpu_torch.tools.check_traverse.
+    nearest_gate`): hit masks identical; t bit-identical where both hit, but
     for at most 1 in 10^5 live rows (all rows, or those of the mask `live`:
     K3's items, not its empty slots), each within 1e-5 relative and printed
     with which walk found the nearer triangle (the other dropped its box at
@@ -320,36 +336,27 @@ def check_nearest(card, label, kh, ph, name, live=None) -> float:
     triangle at the plain walk's t, bit for bit), which is counted; misses,
     empty slots among them, identical in every output. Returns the largest
     |t| difference."""
-    km, pm = kh.prim >= 0, ph.prim >= 0
-    masks = torch.equal(km, pm)
-    both = km & pm
-    same_t = bits(kh.t) == bits(ph.t)
-    diff = both & ~same_t
-    same_id = (kh.prim == ph.prim) & (kh.inst == ph.inst)
-    tie = both & same_t & ~same_id
-    same_uv = (bits(kh.u) == bits(ph.u)) & (bits(kh.v) == bits(ph.v))
-    bad_uv = int((both & same_t & same_id & ~same_uv).sum())
-    miss_bad = int((~km & ~pm & ~(same_t & same_id & same_uv)).sum())
-    n = kh.t.numel() if live is None else int(live.sum())
-    n_diff = int(diff.sum())
-    rel = ((kh.t - ph.t).abs() / ph.t.abs().clamp(min=1e-30))[diff]
-    t_err = (kh.t - ph.t).abs()[both].max().item() if both.any() else 0.0
-    log(card, f"{name}, {label}: hit masks identical {masks}, hits {int(both.sum())}, t "
-              f"bit-identical on all but {n_diff} (max rel {rel.max().item() if n_diff else 0.0:.3e}), "
-              f"exact-t ties (another triangle) {int(tie.sum())}, u/v differ on the same "
-              f"triangle {bad_uv}, misses differ {miss_bad}, bit-identical "
-              f"{all(torch.equal(a, b) for a, b in zip(kh, ph))}")
+    from rfw_tpu_torch.tools.check_traverse import nearest_gate
+
+    g, diff = nearest_gate(kh, ph, live)
+    n, n_diff = g["rows"], g["t_differ"]
+    log(card, f"{name}, {label}: hit masks identical {g['masks_identical']}, hits {g['hits']}, "
+              f"t bit-identical on all but {n_diff} (max rel {g['t_differ_max_rel']:.3e}), "
+              f"exact-t ties (another triangle) {g['exact_t_ties']}, u/v differ on the same "
+              f"triangle {g['uv_differ']}, misses differ {g['misses_differ']}, bit-identical "
+              f"{g['identical']}")
     for i in diff.nonzero().squeeze(1)[:20].tolist():
         nearer = "kernel" if kh.t[i] < ph.t[i] else "plain walk"
         log(card, f"  ray {i}: kernel t {kh.t[i].item():.9g} prim {kh.prim[i].item()} inst "
                   f"{kh.inst[i].item()}; plain t {ph.t[i].item():.9g} prim {ph.prim[i].item()} "
                   f"inst {ph.inst[i].item()}; the {nearer} found the nearer triangle, the other "
                   f"walk dropped its box at the rounding edge")
-    assert masks, f"{name} ({label}): hit masks differ"
+    assert g["masks_identical"], f"{name} ({label}): hit masks differ"
     assert n_diff <= n // 100000, f"{name} ({label}): t differs on {n_diff} of {n} rays"
-    assert n_diff == 0 or rel.max().item() <= 1e-5, f"{name} ({label}): t differs by > 1e-5"
-    assert bad_uv == 0 and miss_bad == 0, f"{name} ({label}): outputs differ off a tie"
-    return t_err
+    assert g["t_differ_max_rel"] <= 1e-5, f"{name} ({label}): t differs by > 1e-5"
+    assert g["uv_differ"] == 0 and g["misses_differ"] == 0, \
+        f"{name} ({label}): outputs differ off a tie"
+    return g["t_err_max"]
 
 
 def check_hits(card, label, kh, ph, name="K1 closest_hit kernel vs plain", exact=True,
@@ -3126,6 +3133,114 @@ def phase14(card, dev, parts, flagship_np, camera, scene, mats, atlas, lights, b
     return dict(tiers=b["launches"], twophase_call=c["launches"])
 
 
+# ------------------------------------------------------------------ phase 15
+BENCH_REPEATS = 3
+BENCH_ARGV = ("--width", W, "--height", H, "--spp", SPP, "--repeats", BENCH_REPEATS)
+#: the kernels' launches a bench sample makes, as phases 10-14 found them
+BENCH_LAUNCHES = {"off": {"closest": 2, "occluded": 2},
+                  "auto": {"closest": 2, "occluded": 2, "items_closest": 1}}
+#: the layer tools at the reference tools' default sizes, with the flags
+#: that reach every call they time
+TOOL_RUNS = (("bisect_e2e", ()), ("profile_e2e", ()),
+             ("bench_traverse", ("--occluded", "--tp-occluded", "--stats")),
+             ("bench_items", ()), ("bench_items", ("--fused",)),
+             ("bench_items", ("--breakdown", "--pallas-A")), ("check_traverse", ()),
+             ("diag_live", ()))
+ANIM_ARGV = ("--size", "64x36", "--frames", 2, "--no-pica")
+
+
+def phase15a(card) -> dict:
+    """`python -m rfw_tpu_torch.bench` at 1920x1080, 8 samples, 3 repeats,
+    with two_phase "off" and "auto": each line parsed, a positive value
+    and a finite film, and the launches of the whole run (counters reset
+    just before it, read just after) a sample as BENCH_LAUNCHES says.
+    Returns the "auto" run's launches."""
+    from rfw_tpu_torch import bench
+
+    n_samples = 1 + SPP * BENCH_REPEATS  # the warm-up and the timed loops
+    out = {}
+    for mode in ("off", "auto"):
+        torch.cuda.synchronize()
+        reset_launches()
+        line = run_tool(card, bench.main, [*BENCH_ARGV, "--two-phase", mode])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        assert line["value"] > 0 and line["vs_baseline"] is None, line
+        assert line["film_finite"] and line["film_mean"] > 0, "the bench's film"
+        per_sample = {k: n / n_samples for k, n in launches.items() if n}
+        log(card, f"phase 15 (a) bench, two_phase={mode}: {line['value']:.3f} Mrays/s, "
+                  f"{line['ms_per_sample']:.2f} ms/sample (median of {BENCH_REPEATS}; all "
+                  f"{', '.join(f'{x:.2f}' for x in line['ms_per_sample_all'])}), peak "
+                  f"{line['peak_mem_mb']} MiB, set-up {line['setup_s']:.3f} s; launches "
+                  f"{launches} over {n_samples} samples, {per_sample} a sample")
+        assert per_sample == BENCH_LAUNCHES[mode], \
+            f"two_phase={mode}: launches a sample {per_sample}"
+        out[mode] = launches
+    return out["auto"]
+
+
+def phase15b(card) -> None:
+    """Each layer tool at its reference default size on the flagship
+    scene; check_traverse's gate must pass."""
+    import importlib
+
+    for name, flags in TOOL_RUNS:
+        tool = importlib.import_module(f"rfw_tpu_torch.tools.{name}")
+        t0 = time.perf_counter()
+        res = run_tool(card, tool.main, list(flags))
+        log(card, f"phase 15 (b) {name} {' '.join(flags)}: {time.perf_counter() - t0:.2f} s")
+        if name == "check_traverse":
+            assert res["ok"], f"check_traverse's gate failed: {res}"
+        if name == "bench_items":
+            assert res["mask_mismatch"] == 0 and res["t_mismatch"] == 0, res
+            assert res.get("A_entry_set_mismatch", 0) == 0, res
+        if name == "bench_traverse":
+            assert all(v == 0 for k, v in res.items() if k.endswith("occl_mismatch")), res
+
+
+def phase15c(card) -> None:
+    """examples/torch_animated.py at 64x36, 2 frames, without pica, with a
+    skinned glTF written here as its CesiumMan: two PNGs, and the second
+    frame's sync takes the device skin and refit route."""
+    import tempfile
+
+    from examples import torch_animated
+    from rfw_tpu_torch.render.torch_backend import TorchBackend
+
+    routes = Counter()
+    wrapped = {}
+    for name in ("_apply_device_dynamics", "_rebuild_scene"):
+        def counted(self, *a, _fn=getattr(TorchBackend, name), _name=name, **k):
+            routes[_name] += 1
+            return _fn(self, *a, **k)
+        wrapped[name] = counted
+    with tempfile.TemporaryDirectory() as root, patched(TorchBackend, **wrapped):
+        man = Path(root) / "models" / "CesiumMan"
+        man.mkdir(parents=True)
+        (man / "CesiumMan.gltf").write_text(json.dumps(skinned_gltf()))
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            torch_animated.main([*map(str, ANIM_ARGV), "--assets", str(man.parent),
+                                 "--out-dir", str(Path(root) / "out")])
+        for line in buf.getvalue().strip().splitlines():
+            log(card, f"phase 15 (c) torch_animated: {line}")
+        pngs = sorted(p.name for p in (Path(root) / "out").glob("*.png"))
+    log(card, f"phase 15 (c): PNGs {pngs}, sync routes {dict(routes)}")
+    assert pngs == ["frame_0000.png", "frame_0001.png"], pngs
+    assert routes == Counter(_rebuild_scene=1, _apply_device_dynamics=1), dict(routes)
+
+
+def phase15(card) -> dict:
+    """The measurement entry point, its layer tools and the animated
+    example on the card. Returns the launches of the "auto" bench run."""
+    t_phase = time.perf_counter()
+    launches = phase15a(card)
+    phase15b(card)
+    phase15c(card)
+    log(card, f"phase 15: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -3291,6 +3406,9 @@ def main() -> int:
                       atlas, lights, base, ps, tp["rays"], native_build)
     del tp["rays"]
 
+    # ---- 15. the measurement entry point, the layer tools, torch_animated
+    bench_launches = phase15(card)
+
     def row(name, source, replaces, launches, rows, extra_err=(), **extra):
         b = max(rows, key=lambda r: r["bound_ms"]) if rows else None
         if rows and all("bound_ms_plain_counts" in r for r in rows):  # the walks K1-K5
@@ -3348,6 +3466,7 @@ def main() -> int:
         k["launches_parallel"] = sum(par_launches[kind] for kind in kinds)
         k["launches_tiers"] = sum(closing["tiers"][kind] for kind in kinds)
         k["launches_twophase_call"] = sum(closing["twophase_call"][kind] for kind in kinds)
+        k["launches_bench"] = sum(bench_launches.get(kind, 0) for kind in kinds)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

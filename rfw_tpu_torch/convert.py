@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from rfw_tpu_torch.backend.structs import DeviceMaterials
-from rfw_tpu_torch.render.atlas import TextureAtlas
-from rfw_tpu_torch.render.lights_pack import DeviceLights
+from rfw_tpu_torch.render.atlas import atlas_to_device  # re-exported: the backend imports it here
+from rfw_tpu_torch.render.lights_pack import DeviceLights, upload_lights
 from rfw_tpu_torch.render.pack import TraceScene
 
 
@@ -45,14 +45,8 @@ def materials_to_device(device_materials, device="cuda") -> DeviceMaterials:
 
 
 def lights_to_device(device_lights, device="cuda") -> DeviceLights:
-    return DeviceLights(*[to_tensor(getattr(device_lights, f), device)
-                          for f in DeviceLights._fields])
-
-
-def atlas_to_device(atlas, device="cuda") -> TextureAtlas:
-    return TextureAtlas(*[
-        None if getattr(atlas, f) is None else to_tensor(getattr(atlas, f), device)
-        for f in TextureAtlas._fields])
+    return upload_lights(DeviceLights(*[getattr(device_lights, f)
+                                        for f in DeviceLights._fields]), device)
 
 
 def update_scene(old_host, old_dev: TraceScene, new_host, device="cuda",

@@ -201,3 +201,14 @@ def sample_bilinear(
     )
     c = torch.cat([rgb, c[..., 3:4]], dim=-1)
     return torch.where(valid[..., None], c, torch.ones_like(c))
+
+
+def atlas_to_device(atlas, device="cuda") -> TextureAtlas:
+    """A packed atlas (this package's or rfw_tpu's) as tensors on `device`
+    (the card unless the caller names another); the uint32 texel pool
+    keeps its bits as int32."""
+    from rfw_tpu_torch.convert import to_tensor
+
+    return TextureAtlas(*[
+        None if getattr(atlas, f) is None else to_tensor(getattr(atlas, f), device)
+        for f in TextureAtlas._fields])

@@ -411,3 +411,41 @@ def to_world_c(t: Vec3C, bt: Vec3C, n: Vec3C, v: Vec3C) -> Vec3C:
     return (v[0] * t[0] + v[1] * bt[0] + v[2] * n[0],
             v[0] * t[1] + v[1] * bt[1] + v[2] * n[1],
             v[0] * t[2] + v[1] * bt[2] + v[2] * n[2])
+
+
+# -------------------------------------------------- batched (R,3) wrappers
+# rfw_tpu's original API, which its tools and tests call: (R,3) tensors in
+# and out, over the component core the integrator runs.
+def disney_eval(p: MatParams, wo: torch.Tensor, wi: torch.Tensor,
+                features: int = FEAT_ALL) -> torch.Tensor:
+    """BRDF value f(wo, wi) in local space (+z = normal). (R,3)."""
+    return v3_stack(disney_eval_c(p, v3_split(wo), v3_split(wi), features))
+
+
+def disney_pdf(p: MatParams, wo: torch.Tensor, wi: torch.Tensor,
+               features: int = FEAT_ALL) -> torch.Tensor:
+    """Solid-angle pdf of disney_sample for the given pair. (R,)."""
+    return disney_pdf_c(p, v3_split(wo), v3_split(wi), features)
+
+
+def disney_sample(p: MatParams, wo: torch.Tensor, u: torch.Tensor,
+                  features: int = FEAT_ALL):
+    """Sample wi ~ pdf; u: (R,3) uniforms. Returns (wi (R,3), f (R,3),
+    pdf (R,), is_delta (R,)); see disney_sample_c."""
+    wi, f, pdf, is_delta = disney_sample_c(
+        p, v3_split(wo), u[..., 0], u[..., 1], u[..., 2], features)
+    return v3_stack(wi), v3_stack(f), pdf, is_delta
+
+
+def build_tangent_frame(n: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Branchless orthonormal basis (Duff et al. 2017). n: (R,3)."""
+    t, bt = build_tangent_frame_c(v3_split(n))
+    return v3_stack(t), v3_stack(bt)
+
+
+def to_local(t, bt, n, v) -> torch.Tensor:
+    return v3_stack(to_local_c(v3_split(t), v3_split(bt), v3_split(n), v3_split(v)))
+
+
+def to_world(t, bt, n, v) -> torch.Tensor:
+    return v3_stack(to_world_c(v3_split(t), v3_split(bt), v3_split(n), v3_split(v)))

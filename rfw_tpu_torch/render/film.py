@@ -8,6 +8,7 @@ effect); `tonemap` produces uint8 RGBA.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -57,3 +58,8 @@ def tonemap(
     rgb = (c * 255.0 + 0.5).to(torch.uint8).reshape(height, width, 3)
     alpha = torch.full((height, width, 1), 255, dtype=torch.uint8, device=accum.device)
     return torch.cat([rgb, alpha], dim=-1)
+
+
+def frame_to_host(frame: torch.Tensor) -> np.ndarray:
+    """A frame (or any tensor) as a host numpy array."""
+    return frame.detach().cpu().numpy()

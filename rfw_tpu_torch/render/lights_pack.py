@@ -2,7 +2,8 @@
 table (host numpy copy of `rfw_tpu/render/lights_pack.py`).
 
 Zero-light types keep one dummy row so shapes stay static (masked by count).
-`rfw_tpu_torch.convert` moves the packed arrays to the device.
+`upload_lights` (or `rfw_tpu_torch.convert`) moves the packed arrays to
+the device.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from rfw_tpu_torch.backend.lights import (
     AreaLightsView,
@@ -188,3 +190,21 @@ def pack_lights(
         light_table=table,
     )
 
+
+def upload_lights(host: DeviceLights, device="cuda") -> DeviceLights:
+    """The packed lights on `device` (the card unless the caller names
+    another) in two host-to-device copies, as rfw_tpu's `upload_lights`
+    does: every int32 field in one blob, every other field as float32 in
+    a second, then each field a view of its blob's slice."""
+    fields = [np.asarray(a) for a in host]
+    is_i32 = [a.dtype == np.int32 for a in fields]
+    blob_i = torch.from_numpy(np.concatenate(
+        [a.ravel() for a, m in zip(fields, is_i32) if m])).to(device)
+    blob_f = torch.from_numpy(np.concatenate(
+        [a.astype(np.float32).ravel() for a, m in zip(fields, is_i32) if not m])).to(device)
+    out, off = [], {True: 0, False: 0}
+    for a, m in zip(fields, is_i32):
+        blob = blob_i if m else blob_f
+        out.append(blob[off[m]:off[m] + a.size].reshape(a.shape))
+        off[m] += a.size
+    return DeviceLights(*out)

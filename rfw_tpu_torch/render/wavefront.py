@@ -242,6 +242,15 @@ def camera_rays_c(
     return o, v3_normalize(d)
 
 
+def camera_rays(
+    view: torch.Tensor, width: int, height: int, key=None, pixel_ids=None, jitter=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(R,3) wrapper over camera_rays_c, with rfw_tpu's argument order
+    (the threefry `key` third): (origins, directions)."""
+    o, d = camera_rays_c(view, width, height, pixel_ids, jitter, key)
+    return v3_stack(o), v3_stack(d)
+
+
 # ------------------------------------------------------------------ lights
 def _light_potentials(lights: DeviceLights, p: Vec3C,
                       ns: Optional[Vec3C]) -> list:
@@ -653,6 +662,20 @@ def _tmap(fn, *trees):
         return {k: _tmap(fn, *[t[k] for t in trees]) for k in t0}
     vals = [_tmap(fn, *xs) for xs in zip(*trees)]
     return type(t0)(*vals) if hasattr(t0, "_fields") else tuple(vals)
+
+
+def sort_key(ray_o: Vec3C, ray_d: Vec3C, scene_mn: torch.Tensor, scene_mx: torch.Tensor,
+             alive=None) -> torch.Tensor:
+    """The bounce sort's (R,) int64 key: direction octant * 2^27 + the
+    origin's 30-bit Morton code in the scene box >> 5; 2^30 (last) where
+    `alive` is False. Lanes take the order of a stable sort by it."""
+    octant = (
+        (ray_d[0] >= 0).to(torch.int64)
+        + 2 * (ray_d[1] >= 0).to(torch.int64)
+        + 4 * (ray_d[2] >= 0).to(torch.int64)
+    )
+    skey = octant * (1 << 27) + (morton_codes_c(ray_o, scene_mn, scene_mx) >> 5)
+    return skey if alive is None else torch.where(alive, skey, 1 << 30)
 
 
 def _prefix_sizes(R: int, g: int, max_bounces: int = 1) -> list:
@@ -1080,14 +1103,7 @@ def render_sample(
 
     def _sort_state(st: _PathState) -> _PathState:
         """Re-sort lanes by (direction octant, origin Morton), dead last."""
-        octant = (
-            (st.ray_d[0] >= 0).to(torch.int64)
-            + 2 * (st.ray_d[1] >= 0).to(torch.int64)
-            + 4 * (st.ray_d[2] >= 0).to(torch.int64)
-        )
-        cell = morton_codes_c(st.ray_o, scene_mn, scene_mx)
-        skey = octant * (1 << 27) + (cell >> 5)
-        skey = torch.where(st.alive, skey, 1 << 30)
+        skey = sort_key(st.ray_o, st.ray_d, scene_mn, scene_mx, st.alive)
         perm = torch.sort(skey, stable=True).indices
         return _tmap(lambda a: a[perm], st)
 

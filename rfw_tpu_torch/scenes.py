@@ -20,6 +20,44 @@ import time
 import numpy as np
 
 
+def bench_lights(scene):
+    """The reference benchmark's lights (`bench.py:53-69`), placed from a
+    packed scene's TLAS bounds: two spots (SpotLightsView) and a sun
+    (DirectionalLightsView)."""
+    from rfw_tpu_torch.backend.lights import DirectionalLightsView, SpotLightsView
+
+    mn, mx = scene.tlas_min[0], scene.tlas_max[0]
+    center = 0.5 * (mn + mx)
+    ext = float(np.linalg.norm(mx - mn))
+    spot = SpotLightsView(
+        position=np.array([center + [0, ext * 0.4, 0],
+                           center + [ext * 0.2, ext * 0.3, ext * 0.2]], np.float32),
+        direction=np.array([[0, -1, 0], [-0.4, -0.8, -0.4]], np.float32),
+        energy=np.array([[80, 78, 70], [40, 40, 48]], np.float32) * ext,
+        cos_inner=np.array([np.cos(np.deg2rad(25))] * 2, np.float32),
+        cos_outer=np.array([np.cos(np.deg2rad(40))] * 2, np.float32),
+        changed=np.ones(2, bool),
+    )
+    sun = DirectionalLightsView(
+        direction=np.array([[0.4, -0.8, 0.3]], np.float32),
+        energy=np.array([[3.0, 2.9, 2.6]], np.float32),
+        changed=np.ones(1, bool),
+    )
+    return spot, sun
+
+
+def bench_camera(scene):
+    """The reference benchmark's camera (`bench.py:94-96`), placed from a
+    packed scene's TLAS bounds."""
+    from rfw_tpu_torch.scene import Camera3D
+
+    mn, mx = scene.tlas_min[0], scene.tlas_max[0]
+    center = 0.5 * (mn + mx)
+    ext = float(np.linalg.norm(mx - mn))
+    return Camera3D(fov=55).look_at(
+        center + np.array([0.55, 0.35, 0.75], np.float32) * ext * 0.62, center)
+
+
 def build_scene(seed: int, views: bool = False):
     """Procedural scene at the flagship scale, packed by the port's own
     packers. Returns (TraceScene, DeviceMaterials, DeviceLights,
@@ -27,15 +65,13 @@ def build_scene(seed: int, views: bool = False):
     also what a backend is fed to pack the same arenas: a dict of the
     meshes and instances as `pack_trace_scene` took them, the `Materials`,
     and the spot, sun and area-light views."""
-    from rfw_tpu_torch.backend.lights import (
-        DirectionalLightsView, PointLightsView, SpotLightsView,
-    )
+    from rfw_tpu_torch.backend.lights import PointLightsView
     from rfw_tpu_torch.mathx import compose_trs, quat_identity
     from rfw_tpu_torch.models import cube, quad3d, sphere
     from rfw_tpu_torch.render.atlas import pack_atlas
     from rfw_tpu_torch.render.lights_pack import pack_lights
     from rfw_tpu_torch.render.pack import pack_trace_scene
-    from rfw_tpu_torch.scene import Camera3D, Material, Materials, Texture
+    from rfw_tpu_torch.scene import Material, Materials, Texture
     from rfw_tpu_torch.scene.lights import extract_area_lights
 
     rng = np.random.default_rng(seed)
@@ -88,26 +124,9 @@ def build_scene(seed: int, views: bool = False):
     scene = pack_trace_scene(meshes, instances)
     pack_s = time.perf_counter() - t0
 
-    mn, mx = scene.tlas_min[0], scene.tlas_max[0]
-    center = 0.5 * (mn + mx)
-    ext = float(np.linalg.norm(mx - mn))
-    spot = SpotLightsView(
-        position=np.array([center + [0, ext * 0.4, 0],
-                           center + [ext * 0.2, ext * 0.3, ext * 0.2]], np.float32),
-        direction=np.array([[0, -1, 0], [-0.4, -0.8, -0.4]], np.float32),
-        energy=np.array([[80, 78, 70], [40, 40, 48]], np.float32) * ext,
-        cos_inner=np.array([np.cos(np.deg2rad(25))] * 2, np.float32),
-        cos_outer=np.array([np.cos(np.deg2rad(40))] * 2, np.float32),
-        changed=np.ones(2, bool),
-    )
-    sun = DirectionalLightsView(
-        direction=np.array([[0.4, -0.8, 0.3]], np.float32),
-        energy=np.array([[3.0, 2.9, 2.6]], np.float32),
-        changed=np.ones(1, bool),
-    )
+    spot, sun = bench_lights(scene)
     lights = pack_lights(PointLightsView.empty(), spot, sun, area)
-    camera = Camera3D(fov=55).look_at(
-        center + np.array([0.55, 0.35, 0.75], np.float32) * ext * 0.62, center)
+    camera = bench_camera(scene)
     atlas = pack_atlas([t for _, t in mats.textures])
     out = (scene, mats.to_device(), lights, atlas, camera, pack_s)
     if views:

@@ -295,6 +295,50 @@ def gltf_doc(images: bool = True) -> dict:
     }
 
 
+def bench_gltf_doc() -> dict:
+    """`gltf_doc()` (textured) with a parent node that is not the identity
+    (rotated, scaled, moved) over a second instance of the floor mesh, so
+    the floor mesh is instanced twice: the scene the benchmark's glTF path
+    packs in the tests."""
+    doc = gltf_doc(images=True)
+    s, c = np.sin(np.pi / 8), np.cos(np.pi / 8)
+    doc["nodes"] += [
+        {"name": "group", "translation": [0.5, 0.25, -0.3], "rotation": [0, s, 0, c],
+         "scale": [0.6, 0.6, 0.6], "children": [5]},
+        {"name": "floor again", "mesh": 1, "translation": [0, 1.5, 0]},
+    ]
+    doc["scenes"][0]["nodes"].append(4)
+    return doc
+
+
+@contextlib.contextmanager
+def reference_bench(gltf_path: str):
+    """The repository's bench.py as a module, its PICA at `gltf_path` and
+    RFW_NO_NATIVE=1 (both packages' numpy BVH builders) inside the block.
+    Importing bench.py sets JAX_COMPILATION_CACHE_DIR; the environment is
+    restored at once, and PICA and RFW_NO_NATIVE on leaving."""
+    import os
+    import sys
+
+    import pytest
+
+    mp = pytest.MonkeyPatch()
+    env = dict(os.environ)
+    mp.syspath_prepend(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    try:
+        bench = importlib.import_module("bench")
+    finally:
+        os.environ.clear()
+        os.environ.update(env)
+    assert bench.__file__ == os.path.join(sys.path[0], "bench.py"), bench.__file__
+    mp.setattr(bench, "PICA", gltf_path)
+    mp.setenv("RFW_NO_NATIVE", "1")
+    try:
+        yield bench
+    finally:
+        mp.undo()
+
+
 def _port_class(x):
     mod = importlib.import_module(type(x).__module__.replace("rfw_tpu.", "rfw_tpu_torch.", 1))
     return getattr(mod, type(x).__name__)

@@ -9,9 +9,15 @@ examples/cornell.py's `main` at the same flags: the same keys
 pixels (the reference's PNG is read with Pillow here; the port's code
 never imports it). The PNG writer's files decode with zlib alone to the
 frame's pixels, through `write_png`, `Instance.save_png` and
-`BrowserWindow.present`.
+`BrowserWindow.present`. `torch_animated.py` runs on a models directory
+whose CesiumMan is the skinned ribbon of `_torch_scene.gltf_doc`, with
+`--no-pica`, 2 frames at 32x18: on TorchBackend its second frame takes the
+device skin and refit route; through the oracle backend (`--cpu`) its
+frames equal examples/animated.py's through rfw_tpu's oracle, bit for bit,
+on the same assets, font and stepped clock.
 """
 
+import json
 import os
 import struct
 import sys
@@ -158,3 +164,102 @@ def test_examples_need_a_card_unless_told(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="cpu"):
         torch_physics.main(["--size", "8x8", "--frames", "1", "--out-dir", str(tmp_path)])
     assert not (tmp_path / "x.png").exists()
+
+
+# ------------------------------------------------------------ torch_animated
+DEJAVU = "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf"
+
+
+@pytest.fixture(scope="module")
+def assets(tmp_path_factory):
+    """A models directory whose CesiumMan/CesiumMan.gltf is the skinned,
+    morphed, animated ribbon of `_torch_scene.gltf_doc` (CesiumMan is not
+    in the repository)."""
+    import _torch_scene
+
+    root = tmp_path_factory.mktemp("assets")
+    (root / "CesiumMan").mkdir()
+    (root / "CesiumMan" / "CesiumMan.gltf").write_text(
+        json.dumps(_torch_scene.gltf_doc(images=False)))
+    return root
+
+
+def test_torch_animated_main(tmp_path, capsys, monkeypatch, assets):
+    """Two characters and 64 spheres on TorchBackend: the second frame's
+    sync (a new pose and moved spheres) takes the device skin and refit
+    route, and the frames differ."""
+    from examples.torch_animated import main
+    from rfw_tpu_torch.render.torch_backend import TorchBackend
+
+    routes = []
+    for name in ("_apply_device_dynamics", "_rebuild_scene"):
+        real = getattr(TorchBackend, name)
+        monkeypatch.setattr(TorchBackend, name,
+                            lambda self, *a, _real=real, _name=name, **k:
+                            routes.append(_name) or _real(self, *a, **k))
+    main(["--size", "32x18", "--frames", "2", "--spp", "1", "--grid", "8", "--no-pica",
+          "--assets", str(assets), "--out-dir", str(tmp_path), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "64 sphere instances" in out and "frame 1:" in out
+    assert routes == ["_rebuild_scene", "_apply_device_dynamics"], routes
+    frames = _frames(tmp_path, 2, (18, 32, 4))
+    assert not np.array_equal(frames[0], frames[1])
+
+
+def test_torch_animated_matches_jax_example(tmp_path, monkeypatch, assets):
+    """examples/animated.py and its counterpart through each package's
+    CpuReferenceBackend (the port's `--cpu`) on the same assets, font and
+    clock: the same frames. The reference example loads its assets from
+    ASSETS, builds a TpuBackend and a FontPlugin with the reference
+    checkout's default font; here ASSETS is the test's directory, the
+    backend is rfw_tpu's CpuReferenceBackend (with the `stats` the example
+    prints) and the font DejaVu Sans. Both GameTimers read a clock that
+    steps 50 ms a call, so both run the same animation times and FPS text."""
+    if not os.path.exists(DEJAVU):
+        pytest.skip(f"no font at {DEJAVU}")
+    import itertools
+    import types
+
+    from PIL import Image
+
+    import rfw_tpu.app.timer as jtimer
+    import rfw_tpu.font as jfont
+    import rfw_tpu.render.tpu_backend as jtpu
+    import rfw_tpu_torch.app.timer as ttimer
+    from examples import animated, torch_animated
+    from rfw_tpu.render.cpu_reference import CpuReferenceBackend
+    from rfw_tpu.utils import Averager
+
+    def oracle(w, h, settings):
+        be = CpuReferenceBackend(w, h, settings)
+        be.stats = {k: Averager() for k in ("sync_ms", "render_ms", "mrays_per_s")}
+        return be
+
+    real_font = jfont.FontPlugin
+    for timer in (jtimer, ttimer):
+        monkeypatch.setattr(timer, "time", types.SimpleNamespace(
+            perf_counter=itertools.count(0.0, 0.05).__next__))
+    monkeypatch.setattr(jtpu, "TpuBackend", oracle)
+    monkeypatch.setattr(jfont, "FontPlugin", lambda: real_font(DEJAVU))
+    monkeypatch.setattr(animated, "ASSETS", str(assets))
+    flags = ["--size", "32x18", "--frames", "2", "--spp", "1", "--bounces", "1", "--grid", "3",
+             "--no-pica"]
+    animated.main([*flags, "--out-dir", str(tmp_path / "j")])
+    torch_animated.main([*flags, "--out-dir", str(tmp_path / "t"), "--assets", str(assets),
+                         "--font", DEJAVU, "--cpu"])
+    got = _frames(tmp_path / "t", 2, (18, 32, 4))
+    for i, frame in enumerate(got):
+        ref = np.asarray(Image.open(tmp_path / "j" / f"frame_{i:04d}.png"))
+        np.testing.assert_array_equal(frame, ref)
+    assert not np.array_equal(got[0], got[1])
+
+
+def test_torch_animated_needs_a_card_unless_told(monkeypatch, tmp_path):
+    import torch
+
+    from examples import torch_animated
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cpu"):
+        torch_animated.main(["--size", "8x8", "--frames", "1", "--out-dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)

@@ -4,7 +4,8 @@ The machine with the GPU has no jax installed, so every module of
 rfw_tpu_torch (and chip_smoke.py and the examples' counterparts,
 examples/torch_*.py) must import with `import jax` failing, and none may
 import rfw_tpu, whose host modules reach jax through their package
-__init__ files. Pillow may be absent there too: every module imports with
+__init__ files, nor the repository's bench.py (the reference's benchmark;
+the port's is rfw_tpu_torch.bench). Pillow may be absent there too: every module imports with
 PIL blocked (texture decoding and the font rasterizer import it inside the
 function that needs it; frames are encoded by utils/png.py).
 """
@@ -28,7 +29,7 @@ import importlib, importlib.abc, pkgutil, sys
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         root = name.split(".")[0]
-        if root in ("jax", "jaxlib", "rfw_tpu"):
+        if root in ("jax", "jaxlib", "rfw_tpu", "bench"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -41,7 +42,7 @@ for n in names:
 import chip_smoke
 for n in EXAMPLES:
     importlib.import_module(f"examples.{n}")
-assert not any(m.split(".")[0] in ("jax", "rfw_tpu") for m in sys.modules)
+assert not any(m.split(".")[0] in ("jax", "rfw_tpu", "bench") for m in sys.modules)
 print(" ".join(names))
 print("imported", len(names))
 """
@@ -79,7 +80,10 @@ MODULES = [
     "rfw_tpu_torch.parallel.distributed", "rfw_tpu_torch.utils.png",
     "rfw_tpu_torch.native", "rfw_tpu_torch.render.packet",
     "rfw_tpu_torch.render.intersect", "rfw_tpu_torch.render.twophase",
-    "rfw_tpu_torch.ops",
+    "rfw_tpu_torch.ops", "rfw_tpu_torch.bench", "rfw_tpu_torch.tools.bisect_e2e",
+    "rfw_tpu_torch.tools.profile_e2e", "rfw_tpu_torch.tools.bench_traverse",
+    "rfw_tpu_torch.tools.bench_items", "rfw_tpu_torch.tools.check_traverse",
+    "rfw_tpu_torch.tools.diag_live",
 ]
 
 
@@ -109,7 +113,7 @@ def _imported_modules(path: pathlib.Path):
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_rfw_tpu_import(path):
     roots = {m.split(".")[0] for m in _imported_modules(path)}
-    assert not roots & {"jax", "jaxlib", "rfw_tpu"}, roots
+    assert not roots & {"jax", "jaxlib", "rfw_tpu", "bench"}, roots
 
 
 def test_importing_builds_nothing():
