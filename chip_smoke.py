@@ -1,6 +1,8 @@
 """Smoke check of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sass-against DIR   # the walk kernels' SASS
+                                               # against another tree's
 
 Drives rfw_tpu_torch's main paths — one progressive path-traced sample per
 call of `render_sample`, 1920x1080, 1 bounce + next-event estimation, Sobol
@@ -195,7 +197,27 @@ Phases (any failed check raises, so the script exits nonzero):
      check_traverse's gate must pass, bench_items and the two-phase any hit
      must agree with K1/K2; (c) examples/torch_animated.py at 64x36, 2
      frames, --no-pica, with a skinned glTF written here as its CesiumMan:
-     two PNGs, its second frame's sync by the device skin and refit route.
+     two PNGs, its second frame's sync by the device skin and refit route;
+ 16. wide supernodes and the bounce sort keys: (a) the flagship and the
+     instance-heavy scene packed 16- and 32-wide (RFW_WIDE_ARITY), K1/K2
+     against their plain versions at the same arity on phase 5's four
+     captured calls (primaries, vertex-0 shadows, bounce rays, bounce
+     shadows) and against the 8-wide kernels on the same rays (K1 under
+     the nearest-first gate, K2 identical), K3/K5 on phase 7's and phase
+     8's captured items and K4 on their rays, each under its arity-8 gate
+     with its counts, times and bound; ptxas's spills and each wide
+     instance's registers and occupancy; (b) no kernel push finds its
+     96-entry stack full (walk_counts asserts it of every compared call,
+     in every phase); (c) one counted 1080p sample per wide arity
+     (two_phase "auto", RFW_TP_SHADOW=1, phase A by K4: K1, K2, K3, K4 and
+     K5 each launch), K1 on one sample's bounce rays under each sort key
+     and in pixel order, `python -m rfw_tpu_torch.bench` as a subprocess
+     with two_phase "off" and "auto" under RFW_WIDE_ARITY 8, 16 and 32
+     and, at 8, under RFW_SORT_KEY morton, mortonoct and instance (ms per
+     sample, Mrays/s, peak memory), and TorchBackend(1920, 1080) on a
+     16-wide pack with the skinned tube of phase 12 (a): its first HDR
+     frame equals render_sample on its own tensors bit for bit, a skin
+     pose sync and a motion sync take the host routes.
 The tests that need a card (tests/test_torch_*.py, `*_on_card`) cannot run
 where the card is (their conftest imports jax); these phases make their
 checks (.claude/skills/verify/SKILL.md maps each test to its phase).
@@ -218,7 +240,11 @@ phase 11's first frame, launches_dynamics in phase 12's first dynamic
 frame (its sync and its render), launches_parallel in phase 13's
 counted film strip, launches_tiers in phase 14's "pallas" frame,
 launches_twophase_call in its public two-phase call and launches_bench in
-phase 15's "auto" bench run (25 samples: the warm-up and 3 x 8). The last line is
+phase 15's "auto" bench run (25 samples: the warm-up and 3 x 8). K1-K5
+carry their supernode `arity`; the entries of arity 16 and 32 (phase 16)
+count their launches in that arity's counted sample and sum their times,
+plain times and bounds over phase 16's compared calls at that arity (a
+16-wide row is 512 B, a 32-wide one 1 KiB). The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -536,14 +562,14 @@ def launched_once(counts: dict, kind: str, fn):
     return out
 
 
-def check_counts(tag, ks, shape, live, kind="walk"):
+def check_counts(tag, ks, shape, live, kind="walk", arity=8):
     """The counting instance's invariants: one warp_ns row per launched
     warp (shape: its launch shape), each written, its end at or after its
     start; rows outside the mask `live` (empty slots, dead lanes) count
     nothing; no leaf visit tests more than its 64 slots. A walk ("walk",
-    K1-K5) visits a node for every live row and tests at most 8 boxes a
-    visit; K6 ("dense") visits no node and tests a treelet only after its
-    box."""
+    K1-K5) visits a node for every live row and tests at most `arity` (the
+    scene's supernode width) boxes a visit; K6 ("dense") visits no node and
+    tests a treelet only after its box."""
     assert ks.warp_ns.shape == (shape["grid"] * shape["block"] // 32, 2), \
         f"{tag}: warp_ns {tuple(ks.warp_ns.shape)} for the launch {shape}"
     assert bool((ks.warp_ns[:, 0] > 0).all()) and bool(
@@ -553,7 +579,8 @@ def check_counts(tag, ks, shape, live, kind="walk"):
     assert bool((ks.tris <= 64 * ks.leaves).all()), f"{tag}: a leaf tests over 64 slots"
     if kind == "walk":
         assert bool((ks.nodes[live] >= 1).all()), f"{tag}: a live row visits no node"
-        assert bool((ks.boxes <= 8 * ks.nodes).all()), f"{tag}: over 8 box tests a visit"
+        assert bool((ks.boxes <= arity * ks.nodes).all()), \
+            f"{tag}: over {arity} box tests a visit"
     else:
         assert not bool(ks.nodes.any()), f"{tag}: K6 visits a node"
         assert bool((ks.leaves <= ks.boxes).all()), f"{tag}: a leaf test without its box"
@@ -578,6 +605,9 @@ def walk_counts(card, tag, ks, stats, n_bytes, shapes) -> dict:
     shape_d, shape_s = shapes
     theory, achieved = occupancy(shape_s, ks.warp_ns)
     theory_d, _ = occupancy(shape_d)
+    # pushes that found the stack (96 entries) full: each overwrote the top
+    # entry, which can lose a subtree; the kernels must make none
+    full = None if ks.full is None else int(ks.full)
     log(card, f"{tag} counts: kernel {k_tot['nodes']} node visits, {k_tot['boxes']} box "
               f"tests, {k_tot['leaves']} leaf visits, {k_tot['tris']} slot tests; plain walk "
               f"{stats.get('nodes', 0)}, {stats.get('boxes', 0)}, {stats.get('leaves', 0)}, "
@@ -585,8 +615,11 @@ def walk_counts(card, tag, ks, stats, n_bytes, shapes) -> dict:
               f"the launch order {eff:.4f} (plain walk's {eff_p:.4f}), longest {longest} steps "
               f"(plain {longest_p}); {shape_d['registers']} registers, occupancy theoretical "
               f"{theory_d:.3f} (counting instance {theory:.3f}), achieved "
-              f"{'not measured' if achieved is None else f'{achieved:.3f}'} (counting instance)")
-    return dict(bound_ms=b_ms, bound_by=by, bound_ms_plain_counts=b_plain,
+              f"{'not measured' if achieved is None else f'{achieved:.3f}'} (counting instance)"
+              + ("" if full is None else f"; pushes that found the stack full: kernel {full}, "
+                 f"plain walk {stats.get('full', 0)}"))
+    assert not full, f"{tag}: {full} pushes found the kernel's stack full"
+    return dict(bound_ms=b_ms, bound_by=by, bound_ms_plain_counts=b_plain, stack_full=full,
                 bound_counts="kernel" if fewer is k_tot else "plain walk",
                 nodes=stats.get("nodes", 0), boxes=stats.get("boxes", 0),
                 leaves=stats.get("leaves", 0), tris=stats.get("tris", 0), kernel_counts=k_tot,
@@ -638,8 +671,9 @@ def compare_call(card, label, kind, ps, o, d, tl, reps=10) -> dict:
         same = torch.equal(got_s, got)
     assert same, f"{name} ({tag}): the counting instance gives another result"
     ms = cuda_ms(lambda: fn(ps, o, d, tl), reps)
-    shapes = [tr.launch_shape(kind == "occluded", c, n) for c in (False, True)]
-    check_counts(f"{name} ({tag})", ks, shapes[1], torch.ones_like(tl_t, dtype=torch.bool))
+    shapes = [tr.launch_shape(kind == "occluded", c, n, arity=ps.arity) for c in (False, True)]
+    check_counts(f"{name} ({tag})", ks, shapes[1], torch.ones_like(tl_t, dtype=torch.bool),
+                 arity=ps.arity)
     row = walk_counts(card, f"{name} {label}", ks, stats, n * (28 + out_b) + scene_b, shapes)
     log(card, f"{name} {label}: {n} rays ({live} live), kernel {ms:.4f} ms, plain "
               f"{plain_ms:.2f} ms, {bound_note(row)}")
@@ -838,9 +872,10 @@ def compare_items(card, name, label, dense, any_hit, ps, inst, o, d, tl):
     same = torch.equal(got_s, got) if any_hit else all(
         torch.equal(a, b) for a, b in zip(got_s, got))
     assert same, f"{name} ({label}): the counting instance gives another result"
-    shape_fn = ti.dense_launch_shape if dense else ti.launch_shape
-    shapes = [shape_fn(any_hit, c, n) for c in (False, True)]
-    check_counts(f"{name} ({label})", ks, shapes[1], live_k, "dense" if dense else "walk")
+    shapes = [ti.dense_launch_shape(any_hit, c, n) if dense
+              else ti.launch_shape(any_hit, c, n, arity=ps.arity) for c in (False, True)]
+    check_counts(f"{name} ({label})", ks, shapes[1], live_k, "dense" if dense else "walk",
+                 ps.arity)
     row = walk_counts(card, f"{name} {label}", ks, stats, item_b + scene_b, shapes)
     log(card, f"{head}, {bound_note(row)}; {item_b} B of items, {scene_b} B of scene")
     out = dict(call=label, items=live, slots=n, ms=ms, plain_ms=plain_ms, max_abs_err=err, **row)
@@ -950,8 +985,8 @@ def compare_entries(card, label, ps, o, d, tl, K, other_k=()):
     n = o.shape[0]
     live = int((tl > 0).sum())
     tlas_b = (ps.nodes.shape[0] - ps.tlas_root) * ps.nodes.shape[1] * 4
-    shapes = [te.launch_shape(K, c, n) for c in (False, True)]
-    check_counts(f"K4 ({label})", ks, shapes[1], tl > 0)
+    shapes = [te.launch_shape(K, c, n, arity=ps.arity) for c in (False, True)]
+    check_counts(f"K4 ({label})", ks, shapes[1], tl > 0, arity=ps.arity)
     row = walk_counts(card, f"K4 {label}", ks, stats, n * (28 + 8 * K) + tlas_b, shapes)
     log(card, f"K4 {label}: {n} rays ({live} live), kernel {ms:.4f} ms, plain "
               f"{plain_ms:.2f} ms, {bound_note(row)}")
@@ -1221,10 +1256,10 @@ def phase7(card, dev, scene, mats, atlas, lights, view, ps, base):
     fb = compare_fallback(card, "flagship", ps, o, d, tl, so, sd, stl, cfg)
     fb["occluded"] += compare_undecided(card, "flagship", ps, so, sd, stl, cfg.tp_K,
                                         UNDECIDED_ITEMS_PER_RAY)
-    _, inst, o_s, d_s, tl_s, _ = packed_items(ps, o, d, tl, cfg.tp_K, cfg.tp_items_per_ray)
-    k3 = compare_items(card, "K3", "bounce closest items", False, False, ps, inst, o_s, d_s, tl_s)
-    _, inst, o_s, d_s, tl_s, _ = packed_items(ps, so, sd, stl, cfg.tp_K, cfg.tp_items_per_ray)
-    k5 = compare_items(card, "K5", "bounce shadow items", False, True, ps, inst, o_s, d_s, tl_s)
+    items_k3 = packed_items(ps, o, d, tl, cfg.tp_K, cfg.tp_items_per_ray)[1:5]
+    k3 = compare_items(card, "K3", "bounce closest items", False, False, ps, *items_k3)
+    items_k5 = packed_items(ps, so, sd, stl, cfg.tp_K, cfg.tp_items_per_ray)[1:5]
+    k5 = compare_items(card, "K5", "bounce shadow items", False, True, ps, *items_k5)
     twophase_vs_classic(card, "flagship bounce rays", ps, o, d, tl, cfg, (so, sd, stl))
     twophase_stages(card, "flagship bounce rays", ps, o, d, tl, cfg)
     with patched(ti, DENSE_A_MAX_INST=0):
@@ -1247,7 +1282,12 @@ def phase7(card, dev, scene, mats, atlas, lights, view, ps, base):
         sample, counted="auto")
     for k in ("closest", "occluded", "items_closest"):
         assert launches[k] > 0, f"the two-phase main path never launched {k}"
-    return dict(K3=[k3], K5=[k5], K4=[k4], launches=launches, fallback=fb, rays=(o, d, tl))
+    # phase 16 holds the wide walks on the same inputs
+    inputs = dict(K3=[("bounce closest items", items_k3)],
+                  K5=[("bounce shadow items", items_k5)],
+                  K4=[("flagship bounce rays", (o, d, tl))])
+    return dict(K3=[k3], K5=[k5], K4=[k4], launches=launches, fallback=fb, rays=(o, d, tl),
+                inputs=inputs)
 
 
 def phase8(card, dev, base):
@@ -1294,6 +1334,8 @@ def phase8(card, dev, base):
         k4 = [compare_entries(card, "heavy bounce rays", ps, o, d, tl, cfg.tp_K),
               compare_entries(card, "heavy bounce shadow rays", ps, so, sd, stl, cfg.tp_K)]
         rows = dict(K3=[], K5=[], K6=[])
+        inputs = dict(K3=[], K5=[], K4=[("heavy bounce rays", (o, d, tl)),
+                                        ("heavy bounce shadow rays", (so, sd, stl))])
         for label, (ro, rd, rtl), any_hit in (("bounce closest", (o, d, tl), False),
                                               ("bounce shadow", (so, sd, stl), True)):
             _, inst, o_s, d_s, tl_s, dense_k = packed_items(
@@ -1301,9 +1343,10 @@ def phase8(card, dev, base):
             none = torch.full_like(inst, -1)
             walk_i = torch.where(dense_k, none, inst).contiguous()
             dense_i = torch.where(dense_k, inst, none).contiguous()
-            rows["K5" if any_hit else "K3"].append(compare_items(
-                card, "K5" if any_hit else "K3", f"heavy {label} items (walk tier)", False,
-                any_hit, ps, walk_i, o_s, d_s, tl_s))
+            kname, label = "K5" if any_hit else "K3", f"heavy {label} items (walk tier)"
+            rows[kname].append(compare_items(card, kname, label, False, any_hit, ps, walk_i,
+                                             o_s, d_s, tl_s))
+            inputs[kname].append((label, (walk_i, o_s, d_s, tl_s)))
             rows["K6"].append(compare_items(
                 card, "K6", f"heavy {label} items (dense tier)", True, any_hit, ps, dense_i,
                 o_s, d_s, tl_s))
@@ -1325,7 +1368,7 @@ def phase8(card, dev, base):
     for k in ("closest", "occluded", "entries", "items_closest", "items_occluded",
               "dense_closest", "dense_occluded"):
         assert launches[k] > 0, f"the phase-8 path never launched {k}"
-    return dict(K4=k4, launches=launches, fallback=fb, **rows)
+    return dict(K4=k4, launches=launches, fallback=fb, inputs=inputs, ps=ps, **rows)
 
 
 def run_tool(card, main, argv):
@@ -1349,7 +1392,7 @@ UBENCH_LIBS = ("ubench_leaf", "ubench_grid")
 WALK_LIBS = ("traverse", "traverse_items", "traverse_entries")
 
 
-def sass_census(card, names=UBENCH_LIBS + WALK_LIBS):
+def sass_census(card, names=UBENCH_LIBS + WALK_LIBS, paths=None):
     """Per kernel of the named libraries, the count of each SASS opcode
     (`cuobjdump -sass` of the built libraries): nvcc deletes work whose
     result is never stored, so this shows that the re-base, the leaf loop,
@@ -1357,15 +1400,21 @@ def sass_census(card, names=UBENCH_LIBS + WALK_LIBS):
     are still in the code, and that the walks keep their exact division.
     Logs the microbenchmarks' censuses. Returns ({kernel symbol: Counter},
     {kernel symbol: [(address, opcode, branch target or None)]}, {kernel
-    symbol: sha256 of its instruction lines})."""
+    symbol: sha256 of its instructions}), of the named libraries as this
+    tree builds them, or of the built libraries at `paths`. The digest
+    reads each instruction without its encoding and column padding, each
+    label as the function-relative address it names, and drops the
+    numbering that nvcc gives internal subroutines and the anonymous
+    namespace across a library, so one function's code digests alike
+    whatever else its library holds."""
     import hashlib
 
     from rfw_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     census, listing, labels, text = {}, {}, {}, {}
-    for b in _build.build(list(names)):
-        sass = subprocess.run([str(tool), "-sass", str(b.path)], capture_output=True,
+    for path in paths or [b.path for b in _build.build(list(names))]:
+        sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
                               text=True, check=True, timeout=120).stdout
         fn = None
         for line in sass.splitlines():
@@ -1382,7 +1431,10 @@ def sass_census(card, names=UBENCH_LIBS + WALK_LIBS):
                           line)
             if fn and m:
                 op = m.group(2)
-                text[fn].append(line.strip())
+                # the instruction alone, its spacing dropped (cuobjdump pads
+                # the columns to the widest instruction of the library)
+                inst = line.split("/*")[1].split("*/", 1)[1].split(";")[0]
+                text[fn].append(" ".join(inst.split()))
                 census[fn][op.split(".")[0]] += 1
                 if op.startswith("MUFU.RCP"):
                     census[fn]["MUFU.RCP"] += 1
@@ -1391,11 +1443,15 @@ def sass_census(card, names=UBENCH_LIBS + WALK_LIBS):
                     t = re.search(r"0x([0-9a-f]+)|\((\.L_x_\d+)\)", m.group(3))
                     target = t and (int(t.group(1), 16) if t.group(1) else t.group(2))
                 listing[fn].append((int(m.group(1), 16), op, target))
+    digest = {}
     for fn, insts in listing.items():  # labels -> the addresses they name
         at = {name: insts[i][0] for name, i in labels[fn].items() if i < len(insts)}
         listing[fn] = [(a, op, at.get(t) if isinstance(t, str) else t) for a, op, t in insts]
-    digest = {fn: hashlib.sha256("\n".join(v).encode()).hexdigest()[:16]
-              for fn, v in text.items()}
+        lines = [re.sub(r"\.L_x_\d+", lambda m: f"0x{at.get(m.group(0), -1):x}", line)
+                 for line in text[fn]]
+        lines = [re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+|__internal_\d+_", "#",
+                        line) for line in lines]
+        digest[fn] = hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
     for fn, c in sorted(census.items()):
         if "leaf_kernel" in fn or "grid_kernel" in fn:
             log(card, f"SASS {fn}: " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
@@ -3241,9 +3297,417 @@ def phase15(card) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 16
+WIDE = (16, 32)
+#: the bench's runs of phase 16 (c): `python -m rfw_tpu_torch.bench` under
+#: each RFW_WIDE_ARITY, then at arity 8 under each other RFW_SORT_KEY, with
+#: "off" and "auto" each
+WIDE_BENCH_ARGV = ("--width", W, "--height", H, "--spp", SPP, "--repeats", 1)
+WIDE_BENCH_RUNS = (*((dict(RFW_WIDE_ARITY=str(a)) for a in (8, *WIDE))),
+                   *(dict(RFW_SORT_KEY=k) for k in ("morton", "mortonoct", "instance")))
+BENCH_TIMEOUT = 300
+#: the walk kernels of a wide scene: (entry, source, the TPU kernel it replaces)
+WIDE_KERNELS = (
+    ("K1 closest_hit", "closest", "rfw_tpu_torch/csrc/traverse.cu",
+     "rfw_tpu/ops/traverse.py:335"),
+    ("K2 occluded", "occluded", "rfw_tpu_torch/csrc/traverse.cu", "rfw_tpu/ops/traverse.py:335"),
+    ("K3 items closest", "items_closest", "rfw_tpu_torch/csrc/traverse_items.cu",
+     "rfw_tpu/ops/traverse_items.py:107"),
+    ("K5 items any-hit", "items_occluded", "rfw_tpu_torch/csrc/traverse_items.cu",
+     "rfw_tpu/ops/traverse_items.py:107"),
+    ("K4 tlas_entries", "entries", "rfw_tpu_torch/csrc/traverse_entries.cu",
+     "rfw_tpu/ops/traverse_entries.py:53"),
+)
+
+
+def wide_pack(card, label, arity, build, dev):
+    """build() (a scenes.py builder) under RFW_WIDE_ARITY=arity, uploaded:
+    (its numpy TraceScene, the tensors, the prepared scene)."""
+    from rfw_tpu_torch.convert import from_numpy_scene
+    from rfw_tpu_torch.ops import traverse as tr
+
+    t0 = time.perf_counter()
+    with env(RFW_WIDE_ARITY=str(arity)):
+        out = build()
+    tensors = from_numpy_scene(*out[:4], dev)
+    ps = tr.prepare_scene(tensors[0])
+    torch.cuda.synchronize()
+    assert ps.arity == arity and ps.nodes.shape[1] == 8 * arity
+    log(card, f"phase 16: {label} packed {arity}-wide in {time.perf_counter() - t0:.2f} s: "
+              f"{ps.nodes.shape[0]} supernode rows of {4 * ps.nodes.shape[1]} B "
+              f"({nbytes(ps.nodes) / 1e6:.2f} MB of nodes; TLAS root {ps.tlas_root})")
+    return out, tensors, ps
+
+
+def launch_shapes(card, n, arity=8):
+    """Registers, local and shared bytes, residency and grid for n rays of
+    each walk kernel K1-K5 at `arity` (and of K6, which has no arity, at
+    8), its default and its counting instance."""
+    from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.ops import traverse_entries as te
+    from rfw_tpu_torch.ops import traverse_items as ti
+    from rfw_tpu_torch.render.wavefront import RenderConfig
+
+    k = RenderConfig().tp_K
+    kernels = [("K1", lambda c: tr.launch_shape(False, c, n, arity=arity)),
+               ("K2", lambda c: tr.launch_shape(True, c, n, arity=arity)),
+               ("K3", lambda c: ti.launch_shape(False, c, n, arity=arity)),
+               ("K5", lambda c: ti.launch_shape(True, c, n, arity=arity)),
+               (f"K4 (K={k})", lambda c: te.launch_shape(k, c, n, arity=arity))]
+    if arity == 8:
+        kernels += [("K6 closest", lambda c: ti.dense_launch_shape(False, c, n)),
+                    ("K6 any hit", lambda c: ti.dense_launch_shape(True, c, n))]
+    wide = "" if arity == 8 else f" {arity}-wide"
+    for stats in (False, True):
+        for name, query in kernels:
+            s = query(stats)
+            log(card, f"{name}{wide}{' counting instance' if stats else ''}: "
+                      f"{s['registers']} registers, {s['local_bytes']} B local, "
+                      f"{s['shared_bytes']} B shared per block of {s['block']}, "
+                      f"{s['blocks_per_sm']} blocks per SM on {s['sms']} SMs -> theoretical "
+                      f"occupancy {occupancy(s)[0]:.3f}; {s['grid']} blocks launched for {n} rays")
+
+
+def spills(card, built) -> None:
+    """ptxas's spill report of the walk kernels' instances by arity (phase
+    1's build log, each line of which phase 1 printed): how many instances
+    spill under the register cap (kMinBlocks), and the largest spill."""
+    by_arity = defaultdict(lambda: [0, 0, 0])  # instances, spilling, largest bytes
+    for b in built:
+        if b.name not in WALK_LIBS:
+            continue
+        fn = None
+        for line in b.log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if fn and m and "_kernel" in fn:
+                a = re.search(r"ELi(8|16|32)E", fn)
+                row = by_arity[int(a.group(1)) if a else 8]
+                row[0] += 1
+                spill = max(int(m.group(1)), int(m.group(2)))
+                row[1] += spill > 0
+                row[2] = max(row[2], spill)
+    for a, (n, spilling, largest) in sorted(by_arity.items()):
+        log(card, f"ptxas, walk kernels (K1-K6) of arity {a}: {spilling} of {n} instances "
+                  f"spill (largest {largest} B)")
+
+
+def phase16a(card, dev, arity, flagship, heavy_build, main_calls, tp, heavy) -> dict:
+    """The wide walks against their plain versions at the same arity, on
+    the inputs phases 5, 7 and 8 captured (the rays and items do not depend
+    on the width): K1/K2 on the 1080p sample's four traversal calls, and K1
+    and K2 of `arity` against the 8-wide kernels on the same rays; K3, K5
+    and K4 on phase 7's flagship items and rays and phase 8's heavy ones.
+    Each compare_* row holds its gate, counts (no push finds the stack
+    full), times and bound. Returns {kind: [rows]}."""
+    from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.render.wavefront import RenderConfig
+
+    K = RenderConfig().tp_K
+    rows = defaultdict(list)  # by launch kind
+    ps = flagship[2]
+    for label, kind, ps8, o, d, tl in main_calls:
+        lab = f"{label}, {arity}-wide"
+        rows[kind].append(compare_call(card, lab, kind, ps, o, d, tl))
+        if kind == "closest":  # K1 of `arity` against K1 8-wide
+            check_nearest(card, lab, tr.closest_hit(ps, o, d, tl), tr.closest_hit(ps8, o, d, tl),
+                          f"K1 {arity}-wide vs K1 8-wide")
+        else:
+            check_occluded(card, lab, tr.occluded(ps, o, d, tl), tr.occluded(ps8, o, d, tl),
+                           f"K2 {arity}-wide vs K2 8-wide")
+    _, _, hps = wide_pack(card, "the instance-heavy scene", arity, heavy_build, dev)
+    # K6 reads the per-treelet tables, which the wide pack names alike
+    assert torch.equal(hps.tbox, heavy["ps"].tbox) and torch.equal(hps.tcount, heavy["ps"].tcount)
+    for scene_ps, inputs in ((ps, tp["inputs"]), (hps, heavy["inputs"])):
+        for name, kind, any_hit in (("K3", "items_closest", False),
+                                    ("K5", "items_occluded", True)):
+            for label, items in inputs[name]:
+                rows[kind].append(compare_items(card, name, f"{label}, {arity}-wide", False,
+                                                any_hit, scene_ps, *items))
+        for label, (o, d, tl) in inputs["K4"]:
+            rows["entries"].append(compare_entries(card, f"{label}, {arity}-wide", scene_ps, o,
+                                                   d, tl, K))
+    del hps
+    return rows
+
+
+def phase16_counted(card, dev, arity, tensors, mats, atlas, lights, view, base) -> dict:
+    """The wide main path's counted run: one 1080p sample on the flagship
+    at `arity` with two_phase="auto", RFW_TP_SHADOW=1 and phase A by K4
+    (the dense-scan gate forced to 0), so that K1, K2, K4, K3 and K5 each
+    launch (launch counters reset just before it, read just after)."""
+    from rfw_tpu_torch.ops import traverse_items as ti
+    from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
+
+    cfg = RenderConfig(**{**base, "two_phase": "auto"})
+    with env(RFW_TP_SHADOW="1"), patched(ti, DENSE_A_MAX_INST=0):
+        render_sample(tensors[0], mats, atlas, lights, view, W, H, cfg, sample_index=200)
+        torch.cuda.synchronize()
+        reset_launches()
+        out = render_sample(tensors[0], mats, atlas, lights, view, W, H, cfg, sample_index=201)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    log(card, f"phase 16 counted sample, {arity}-wide flagship (two_phase auto, RFW_TP_SHADOW=1, "
+              f"phase A by K4): launches {launches}, mean radiance "
+              f"{out.radiance.mean().item():.6f}")
+    assert bool(torch.isfinite(out.radiance).all()) and out.radiance.mean().item() > 0
+    for _, kind, *_ in WIDE_KERNELS:
+        assert launches[kind] > 0, f"the {arity}-wide path never launched {kind}"
+    return launches
+
+
+def phase16_sort_keys(card, dev, scene, mats, atlas, lights, view, base, ps) -> dict:
+    """K1 on the bounce rays of one 1080p sample (two_phase="off", 8-wide)
+    under each sort key and in pixel order: the bounce state's rays, alive
+    mask and instance hints captured at the sort, each key's stable order
+    and its compacted prefix, as `render_sample` traces them. Returns
+    {key: ms}."""
+    from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.render import wavefront as wf
+    from rfw_tpu_torch.render.intersect import T_MAX
+
+    cfg = wf.RenderConfig(**base)
+    seen = []
+
+    def record(ray_o, ray_d, mn, mx, alive=None, hint=None, key=None):
+        seen.append((ray_o, ray_d, mn, mx, alive.clone(), hint.clone()))
+        return real(ray_o, ray_d, mn, mx, alive, hint, key)
+
+    real = wf.sort_key
+    with patched(wf, sort_key=record):
+        wf.render_sample(scene, mats, atlas, lights, view, W, H, cfg, sample_index=300)
+    assert len(seen) == 1, f"{len(seen)} bounce sorts in one 1-bounce sample"
+    ray_o, ray_d, mn, mx, alive, hint = seen[0]
+    o, d = torch.stack(ray_o, 1), torch.stack(ray_d, 1)
+    R, live = o.shape[0], int(alive.sum())
+    sizes = wf._prefix_sizes(R, wf.resolve_traversal(cfg, R).lanes, cfg.max_bounces)
+    n = wf._pick_prefix(sizes, live)
+    out = {}
+    for key in (*wf.SORT_KEYS, "pixel order"):
+        if key == "pixel order":  # no sort, no compaction
+            perm = torch.arange(R, device=dev)
+        else:
+            perm = torch.sort(wf.sort_key(ray_o, ray_d, mn, mx, alive, hint, key=key),
+                              stable=True).indices[:n]
+            assert bool(alive[perm[:live]].all()), f"{key}: a dead lane before a live one"
+        po, pd = o[perm].contiguous(), d[perm].contiguous()
+        tl = torch.where(alive[perm], T_MAX, 0.0)
+        out[key] = cuda_ms(lambda: tr.closest_hit(ps, po, pd, tl), 10)
+    log(card, f"phase 16 K1 on one sample's bounce rays ({live} live of {R}; a sorted key traces "
+              f"the prefix of {n}), ms by sort key: "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in out.items()))
+    return out
+
+
+def phase16_bench(card) -> list:
+    """`python -m rfw_tpu_torch.bench` as a subprocess per WIDE_BENCH_RUNS
+    environment and two_phase mode: each line parsed (a positive value, a
+    finite film); ms per sample, Mrays/s and peak memory logged."""
+    root = Path(__file__).resolve().parent
+    torch.cuda.empty_cache()
+    lines = []
+    for extra in WIDE_BENCH_RUNS:
+        for mode in ("off", "auto"):
+            e = {k: v for k, v in os.environ.items()
+                 if k not in ("RFW_WIDE_ARITY", "RFW_SORT_KEY", "RFW_SORT_INST")}
+            e.update(extra)
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "rfw_tpu_torch.bench", *map(str, WIDE_BENCH_ARGV),
+                 "--two-phase", mode], cwd=root, env=e, capture_output=True, text=True,
+                timeout=BENCH_TIMEOUT)
+            assert res.returncode == 0, f"bench {extra} {mode}: {res.stderr[-3000:]}"
+            line = json.loads(res.stdout.strip().splitlines()[-1])
+            assert line["value"] > 0 and line["film_finite"] and line["film_mean"] > 0, line
+            name = ", ".join(f"{k}={v}" for k, v in extra.items())
+            log(card, f"phase 16 (c) bench {name}, two_phase={mode}: {line['value']:.3f} "
+                      f"Mrays/s, {line['ms_per_sample']:.2f} ms/sample, peak "
+                      f"{line['peak_mem_mb']} MiB, set-up {line['setup_s']:.3f} s "
+                      f"(process {time.perf_counter() - t0:.1f} s)")
+            lines.append(dict(env=extra, two_phase=mode, line=line))
+    return lines
+
+
+def phase16_backend(card, dev, parts, camera, base) -> None:
+    """TorchBackend(1920, 1080) with TorchSettings' device routes on the
+    flagship scene plus phase 12 (a)'s skinned tube, packed 16-wide: its
+    first HDR frame equals render_sample at sample 0 on its own tensors (bit
+    for bit); a skin pose sync takes the host repack (the refit plans are
+    8-wide) and a motion sync of the spheres the host TLAS rebuild (the
+    TLAS refit plan and the device TLAS builder are 8-wide)."""
+    import rfw_tpu_torch.render.torch_backend as tb
+    from rfw_tpu_torch.backend import InstancesView3D, SkinView
+    from rfw_tpu_torch.ops import traverse as tr
+    from rfw_tpu_torch.render.torch_backend import TorchBackend, TorchSettings
+    from rfw_tpu_torch.render.wavefront import (
+        RenderConfig, mat_feature_mask, render_sample, tex_kinds_mask,
+    )
+
+    settings = TorchSettings(samples_per_frame=1, max_bounces=BOUNCES, clamp=20.0,
+                             sky_intensity=0.35, sampler="sobol")
+    tube = skinned_tube(next(i for i, m in parts["materials"].materials if m.name == "diffuse"))
+    mats = np.eye(4, dtype=np.float32)[None].repeat(2, 0)
+    mats[:, :3, 3] = [[-4.5, 0, -4.5], [4.5, 0, 4.5]]
+
+    def tube_view():
+        return InstancesView3D(matrices=mats, skin_ids=np.zeros(2, np.int32),
+                               changed=np.ones(2, bool), local_aabb_min=tube.aabb_min,
+                               local_aabb_max=tube.aabb_max,
+                               morph_weights=np.full((2, 2), 0.5, np.float32))
+
+    view = camera.get_view(W, H)
+    routes = Counter()
+    be = TorchBackend(W, H, settings)
+    assert be.device.type == "cuda" and settings.device_dynamics and settings.device_motion
+    for name in ("_rebuild_scene", "_apply_device_dynamics", "_try_device_motion"):
+        def counted(*a, _fn=getattr(be, name), _name=name, **k):
+            out = _fn(*a, **k)
+            routes[_name if out is not False else f"{_name} declined"] += 1
+            return out
+        setattr(be, name, counted)
+    repacks = Counter()
+    real_repack = tb.repack_instances
+
+    def counted_repack(*a, **k):
+        repacks["n"] += 1
+        return real_repack(*a, **k)
+
+    with env(RFW_WIDE_ARITY="16"), patched(tb, repack_instances=counted_repack):
+        be.set_skins([(0, SkinView(joint_matrices=tube_pose(0.0)))])
+        feed_flagship(be, parts, [(TUBE_SLOT, tube.view())], [(TUBE_SLOT, tube_view())])
+        assert be._scene_host.blas8_code.shape[1] == 16 and be._dyn is None
+        be.render(None, view)
+        hdr = be.hdr_frame()
+        cfg = RenderConfig(max_bounces=BOUNCES, clamp=20.0, sky_intensity=0.35,
+                           sampler="sobol", aovs=False, tex_mask=tex_kinds_mask(be._materials.tex),
+                           mat_features=mat_feature_mask(be._materials),
+                           has_area_lights=be._area.count > 0)
+        assert tr.prepare_scene(be._scene_dev).arity == 16
+        ref = render_sample(be._scene_dev, be._mats_dev, be._atlas_dev, be._lights_dev,
+                            torch.from_numpy(view.as_array()).to(dev), W, H, cfg,
+                            sample_index=0).radiance.cpu().numpy().reshape(H, W, 3)
+        same = np.array_equal(hdr, ref)
+        log(card, f"phase 16 (c) TorchBackend({W}, {H}) on a 16-wide pack: first frame "
+                  f"{be.stats['render_ms'].last():.2f} ms; its HDR frame equals render_sample "
+                  f"on its own tensors bit for bit {same} (max abs err "
+                  f"{np.abs(hdr - ref).max():.3e})")
+        assert same, "the 16-wide backend frame differs from render_sample's"
+        before = dict(routes)
+        be.set_skins([(0, SkinView(joint_matrices=tube_pose(0.7)))])
+        be.synchronize()
+        be.render(None, view)
+        dyn = {k: routes[k] - before.get(k, 0) for k in routes}
+        meshes = {slot: mesh for slot, mesh, _ in parts["meshes"]}
+        moved = []
+        for slot, m in parts["instances"][:4]:
+            m = m.copy()
+            m[:, :3, 3] += 0.1
+            moved.append((slot, InstancesView3D(
+                matrices=m, skin_ids=np.full(m.shape[0], -1, np.int32),
+                changed=np.ones(m.shape[0], bool), local_aabb_min=meshes[slot].aabb_min,
+                local_aabb_max=meshes[slot].aabb_max)))
+        before = dict(routes)
+        be.set_3d_instances(moved)
+        be.synchronize()
+        frame = be.render(None, view)
+        motion = {k: routes[k] - before.get(k, 0) for k in routes}
+    log(card, f"phase 16 (c) 16-wide backend routes: skin pose sync {dyn}, motion sync "
+              f"{motion}, host TLAS repacks {repacks['n']}; frames {frame.shape}")
+    assert dyn.get("_rebuild_scene") == 1 and not dyn.get("_apply_device_dynamics"), dyn
+    assert motion.get("_try_device_motion declined") == 1 and repacks["n"] == 1, motion
+    assert be._dyn is None and be._motion is None
+    assert be._scene_host.tlas8_code.shape[1] == 16
+    assert torch.equal(be._scene_dev.tlas8_code.cpu(),
+                       torch.from_numpy(be._scene_host.tlas8_code)), "a device-built TLAS"
+
+
+def kernel_row(name, source, replaces, launches, rows, extra_err=(), **extra) -> dict:
+    """A kernel's entry of the `kernels` line from its compared calls' rows:
+    their times, plain times and bounds summed, its largest disagreement
+    (also over `extra_err`), the bound's kind of the call with the largest
+    bound; the walks also sum their bounds by the plain walk's counts."""
+    b = max(rows, key=lambda r: r["bound_ms"]) if rows else None
+    if rows and all("bound_ms_plain_counts" in r for r in rows):  # the walks K1-K5
+        extra["bound_ms_plain_counts"] = sum(r["bound_ms_plain_counts"] for r in rows)
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                max_abs_err=max([*extra_err, *(r["max_abs_err"] for r in rows)]),
+                ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=sum(r["bound_ms"] for r in rows),
+                bound_by=b["bound_by"] if b else None, library_ms=None, calls=rows, **extra)
+
+
+def phase16(card, dev, built, main_calls, tp, heavy, parts, camera, tensors, base, ps) -> dict:
+    """Wide supernodes and the bounce sort keys on the card: (a) K1-K5 at
+    16 and 32 against their plain versions at the same arity on phases 5,
+    7 and 8's inputs, and the wide K1/K2 against the 8-wide ones; (b) no
+    push finds a kernel's stack full (walk_counts asserts it); (c) the
+    counted 16- and 32-wide main path, the bench under each arity and sort
+    key, K1 on one sample's bounce rays under each key, and the backend's
+    16-wide routes. Returns the kernels line's wide entries."""
+    from rfw_tpu_torch.scenes import build_heavy_scene, build_scene
+
+    t_phase = time.perf_counter()
+    spills(card, built)
+    scene, mats, lights, atlas = tensors
+    view = torch.from_numpy(camera.get_view(W, H).as_array()).to(dev)
+    entries = []
+    for arity in WIDE:
+        launch_shapes(card, W * H, arity)
+        flagship = wide_pack(card, "the flagship scene", arity, lambda: build_scene(SEED), dev)
+        rows = phase16a(card, dev, arity, flagship, lambda: build_heavy_scene(SEED + 1, N_HEAVY),
+                        main_calls, tp, heavy)
+        launches = phase16_counted(card, dev, arity, flagship[1], mats, atlas, lights, view,
+                                   base)
+        for name, kind, source, replaces in WIDE_KERNELS:
+            entries.append(kernel_row(f"{name} ({arity}-wide)", source, replaces,
+                                      launches[kind], rows[kind], arity=arity,
+                                      stack_full=sum(r["stack_full"] for r in rows[kind])))
+        del flagship, rows
+        torch.cuda.empty_cache()
+    keys_ms = phase16_sort_keys(card, dev, scene, mats, atlas, lights, view, base, ps)
+    bench = phase16_bench(card)
+    phase16_backend(card, dev, parts, camera, base)
+    log(card, f"phase 16: {time.perf_counter() - t_phase:.2f} s")
+    return dict(entries=entries, keys_ms=keys_ms, bench=bench)
+
+
+def sass_against(card, other: Path) -> None:
+    """The walk kernels' SASS against another tree's (`python3 chip_smoke.py
+    --sass-against DIR`, DIR e.g. the parent commit unpacked by `git
+    archive`): each tree builds its own libraries (DIR's in a subprocess
+    from its root) and this script's sass_census digests both. Logs, per
+    instance of arity 8, whether its digest equals DIR's (instances match
+    by symbol, the arity parameter and the anonymous namespace dropped)."""
+    from rfw_tpu_torch.ops import _build
+
+    code = ("import json; from rfw_tpu_torch.ops import _build; print(json.dumps("
+            f"[str(b.path) for b in _build.build({list(WALK_LIBS)!r})]))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=other, capture_output=True,
+                         text=True, timeout=900, check=True)
+    theirs = sass_census(card, paths=json.loads(res.stdout.strip().splitlines()[-1]))[2]
+    ours = sass_census(card, paths=[b.path for b in _build.build(list(WALK_LIBS))])[2]
+
+    def key(fn):
+        fn = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "", fn)
+        return fn.replace("ELi8EEEv", "EEEv")
+
+    theirs = {key(fn): h for fn, h in theirs.items()}
+    rows = [(fn, h, theirs.get(key(fn))) for fn, h in sorted(ours.items())
+            if not re.search(r"ELi(16|32)E", fn)]
+    for fn, h, t in rows:
+        log(card, f"SASS {'equal' if h == t else 'differs'}: {fn} {h} ({other}: {t})")
+    log(card, f"SASS of arity 8 against {other}: {sum(h == t for _, h, t in rows)} of "
+              f"{len(rows)} instances equal ({len(theirs)} there)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
+    if sys.argv[1:2] == ["--sass-against"]:
+        sass_against(card_line(), Path(sys.argv[2]).resolve())
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -3266,8 +3730,6 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(card, f"ptxas {b.name}: " + line.strip())
     from rfw_tpu_torch import native
-    from rfw_tpu_torch.ops import traverse_entries as te
-    from rfw_tpu_torch.ops import traverse_items as ti
     from rfw_tpu_torch.render.wavefront import RenderConfig
 
     # the native host runtime, at its first use (the host build's default)
@@ -3275,22 +3737,7 @@ def main() -> int:
     log(card, f"native host library: built by g++ in {native_build.seconds:.3f} s "
               f"({'/'.join(native_build.path.parts[-4:])})")
 
-    tp_k = RenderConfig().tp_K
-    for stats in (False, True):
-        for name, query in (("K1", lambda c: tr.launch_shape(False, c, W * H)),
-                            ("K2", lambda c: tr.launch_shape(True, c, W * H)),
-                            ("K3", lambda c: ti.launch_shape(False, c, W * H)),
-                            ("K5", lambda c: ti.launch_shape(True, c, W * H)),
-                            (f"K4 (K={tp_k})", lambda c: te.launch_shape(tp_k, c, W * H)),
-                            ("K6 closest", lambda c: ti.dense_launch_shape(False, c, W * H)),
-                            ("K6 any hit", lambda c: ti.dense_launch_shape(True, c, W * H))):
-            s = query(stats)
-            theory, _ = occupancy(s)
-            log(card, f"{name}{' counting instance' if stats else ''}: "
-                      f"{s['registers']} registers, {s['local_bytes']} B local, "
-                      f"{s['shared_bytes']} B shared per block of {s['block']}, "
-                      f"{s['blocks_per_sm']} blocks per SM on {s['sms']} SMs -> theoretical "
-                      f"occupancy {theory:.3f}; {s['grid']} blocks launched for {W * H} rays")
+    launch_shapes(card, W * H)
 
     # ---- 2. scene
     from rfw_tpu_torch.convert import from_numpy_scene
@@ -3342,10 +3789,9 @@ def main() -> int:
 
     # warm-up sample, its traversal inputs captured; the kernels against
     # their plain versions on exactly those inputs
-    calls = capture_traversal(lambda: sample(0))
+    calls = capture_traversal(lambda: sample(0))  # phase 16 reuses them
     main_rows = compare_main_path(card, calls)
     assert set(main_rows) == {"closest", "occluded"}, f"traversal calls seen: {list(main_rows)}"
-    del calls
     torch.cuda.synchronize()
     film = new_film(W, H, device=dev)
     reset_launches()
@@ -3409,17 +3855,12 @@ def main() -> int:
     # ---- 15. the measurement entry point, the layer tools, torch_animated
     bench_launches = phase15(card)
 
-    def row(name, source, replaces, launches, rows, extra_err=(), **extra):
-        b = max(rows, key=lambda r: r["bound_ms"]) if rows else None
-        if rows and all("bound_ms_plain_counts" in r for r in rows):  # the walks K1-K5
-            extra["bound_ms_plain_counts"] = sum(r["bound_ms_plain_counts"] for r in rows)
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches,
-                    max_abs_err=max([*extra_err, *(r["max_abs_err"] for r in rows)]),
-                    ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
-                    bound_ms=sum(r["bound_ms"] for r in rows),
-                    bound_by=b["bound_by"] if b else None, library_ms=None, calls=rows,
-                    **extra)
+    # ---- 16. wide supernodes (RFW_WIDE_ARITY 16, 32) and the sort keys
+    wide = phase16(card, dev, built, calls, tp, heavy, parts, camera,
+                   (scene, mats, lights, atlas), base, ps)
+    del calls
+
+    row = kernel_row
 
     def fallback(kind):
         return [r for fb in (tp["fallback"], heavy["fallback"]) for r in fb[kind]]
@@ -3429,20 +3870,21 @@ def main() -> int:
         return row(name, "rfw_tpu_torch/csrc/traverse.cu", "rfw_tpu/ops/traverse.py:335",
                    launches[kind], rows,
                    [cmp_err, *(r["max_abs_err"] for r in fallback(kind))],
-                   fallback_calls=fallback(kind))
+                   fallback_calls=fallback(kind), arity=8)
 
     items_src = "rfw_tpu_torch/csrc/traverse_items.cu"
     kernels = [
         walk_row("K1 closest_hit", "closest", cmp["K1"]),
         walk_row("K2 occluded", "occluded", cmp["K2"]),
         row("K3 items closest", items_src, "rfw_tpu/ops/traverse_items.py:107",
-            tp["launches"]["items_closest"], tp["K3"], [r["max_abs_err"] for r in heavy["K3"]]),
+            tp["launches"]["items_closest"], tp["K3"], [r["max_abs_err"] for r in heavy["K3"]],
+            arity=8),
         row("K5 items any-hit", items_src, "rfw_tpu/ops/traverse_items.py:107",
             heavy["launches"]["items_occluded"], heavy["K5"],
-            [r["max_abs_err"] for r in tp["K5"]]),
+            [r["max_abs_err"] for r in tp["K5"]], arity=8),
         row("K4 tlas_entries", "rfw_tpu_torch/csrc/traverse_entries.cu",
             "rfw_tpu/ops/traverse_entries.py:53", heavy["launches"]["entries"], heavy["K4"],
-            [r["max_abs_err"] for r in tp["K4"]]),
+            [r["max_abs_err"] for r in tp["K4"]], arity=8),
         row("K6 dense items (closest + any-hit)", items_src, "rfw_tpu/ops/traverse_items.py:527",
             heavy["launches"]["dense_closest"] + heavy["launches"]["dense_occluded"],
             heavy["K6"]),
@@ -3467,6 +3909,7 @@ def main() -> int:
         k["launches_tiers"] = sum(closing["tiers"][kind] for kind in kinds)
         k["launches_twophase_call"] = sum(closing["twophase_call"][kind] for kind in kinds)
         k["launches_bench"] = sum(bench_launches.get(kind, 0) for kind in kinds)
+    kernels += wide["entries"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

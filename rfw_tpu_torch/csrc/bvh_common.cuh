@@ -5,8 +5,10 @@
 // (from the TLAS root) and K3/K5 (from an item's BLAS root) instantiate.
 //
 // Scene encoding (rfw_tpu_torch/ops/traverse.py::prepare_scene):
-//   * 8-wide supernodes, one row of 64 int32 each: 48 box-float bit
-//     patterns (child k = min3|max3 at 6k..6k+5), 8 child codes, 8 counts.
+//   * A-wide supernodes (A = 8, 16 or 32: the pack's RFW_WIDE_ARITY), one
+//     row of 8A int32 each: 6A box-float bit patterns (child k = min3|max3
+//     at 6k..6k+5), A child codes, A counts. The walk takes A as a template
+//     parameter; the wrappers pick the instance from the prepared scene.
 //     code >= 0 is an internal node, -1 is "pop", <= -2 a treelet leaf;
 //     a TLAS leaf child enters roots[instance] in that instance's object
 //     space (the ray is re-based through the instance's world->object
@@ -40,10 +42,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace rfw {
 
-constexpr int kArity = 8;
-constexpr int kNodeInts = 8 * kArity;  // 48 box bits + 8 codes + 8 counts
+// int32 a supernode row of A children: 6A box bits, A codes, A counts
+template <int A>
+constexpr int kNodeInts = 8 * A;
 constexpr int kTreelet = 64;
 constexpr int kTShift = 6;
 constexpr int kStackDepth = 96;
@@ -125,16 +130,19 @@ __device__ __forceinline__ bool slab(float x0, float y0, float z0, float x1, flo
   return tn <= tf && tf > kTMin;
 }
 
-// The eight children of supernode row `row`, in pairs of three float4 box
-// loads and one int4 each of codes and counts a quad: child(x0, y0, z0, x1,
-// y1, z1, code, count) per child slot, in slot order.
-template <class Child>
+// The A children of supernode row `row`, a quad of four at a time: six
+// float4 box loads (in pairs of three) and one int4 each of codes and counts
+// a quad (the code and count runs start at 6A and 7A int32, 16-byte aligned
+// at every A): child(x0, y0, z0, x1, y1, z1, code, count) per child slot, in
+// slot order.
+template <int A, class Child>
 __device__ __forceinline__ void for_children(const int* __restrict__ row, Child& child) {
+  static_assert(A % 4 == 0, "a supernode holds whole quads of children");
   const float4* box = reinterpret_cast<const float4*>(row);
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int4 cq = __ldg(reinterpret_cast<const int4*>(row + 6 * kArity) + q);
-    const int4 nq = __ldg(reinterpret_cast<const int4*>(row + 7 * kArity) + q);
+  for (int q = 0; q < A / 4; ++q) {
+    const int4 cq = __ldg(reinterpret_cast<const int4*>(row + 6 * A) + q);
+    const int4 nq = __ldg(reinterpret_cast<const int4*>(row + 7 * A) + q);
     const float4 a0 = __ldg(box + 6 * q + 0), a1 = __ldg(box + 6 * q + 1),
                  a2 = __ldg(box + 6 * q + 2);
     child(a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, cq.x, nq.x);
@@ -305,7 +313,9 @@ __device__ __forceinline__ void persistent(Lane& lane, int n, int* __restrict__ 
 // The stack of (node, entry t) and, where the walk changes instance on a
 // pop (kInst), the node's instance; in local memory, which L1 caches (a
 // stack whose first entries sat in shared memory measured slower on K1).
-// Overflow clamps as the plain walks do (the 96th entry is overwritten).
+// Overflow clamps as the plain walks do (the 96th entry is overwritten);
+// push returns whether it found the stack full, which the counting
+// instances count.
 template <bool kInst>
 struct Stack {
   int code[kStackDepth];
@@ -313,12 +323,14 @@ struct Stack {
   float tn[kStackDepth];
   int sp;
 
-  __device__ __forceinline__ void push(int c, int i, float t) {
+  __device__ __forceinline__ bool push(int c, int i, float t) {
     const int k = min(sp, kStackDepth - 1);
     code[k] = c;
     if (kInst) inst[k] = i;
     tn[k] = t;
+    const bool full = sp >= kStackDepth;
     sp = min(sp + 1, kStackDepth);
+    return full;
   }
 
   __device__ __forceinline__ void pop(int& c, int& i, float& t) {
@@ -456,11 +468,14 @@ __device__ __forceinline__ bool pop(Walker& w, Stack<kInst>& st) {
   return true;
 }
 
-// One visit (the node or leaf the ray holds). False when the ray is done:
-// occluded (any hit) or at the iteration cap. kTlas: the walk may be in
-// the TLAS (an instance leaf child enters that instance's BLAS).
-template <bool kAnyHit, bool kStats, bool kTlas>
-__device__ __forceinline__ bool visit(Walker& w, Stack<kTlas>& st,
+// One visit (the node or leaf the ray holds) of an A-wide scene. False when
+// the ray is done: occluded (any hit) or at the iteration cap. kTlas: the
+// walk may be in the TLAS (an instance leaf child enters that instance's
+// BLAS). The counting instance adds each push that finds the stack full to
+// *full_count; the default instance compiles none of it (no Walker member,
+// no capture), so its code is the walk's without the count.
+template <bool kAnyHit, bool kStats, bool kTlas, int A>
+__device__ __forceinline__ bool visit(Walker& w, Stack<kTlas>& st, int* full_count,
                                       const int* __restrict__ nodes, int n_nodes,
                                       const float4* __restrict__ tris, int n_tri_rows,
                                       const float4* __restrict__ insts, int n_inst,
@@ -505,12 +520,19 @@ __device__ __forceinline__ bool visit(Walker& w, Stack<kTlas>& st,
     // nearest child hit, push the second nearest last and the others
     // before it, each with its entry t
     if (kStats) ++w.nodes;
-    const int* row = nodes + static_cast<size_t>(w.node) * kNodeInts;
+    const int* row = nodes + static_cast<size_t>(w.node) * kNodeInts<A>;
     const bool in_tlas = kTlas && w.inst < 0;
     int nx_code = -1, nx_inst = w.inst;
     float nx_tn = kNone;
     int sd_code = -1, sd_inst = w.inst;
     float sd_tn = kNone;
+    // a push that finds the stack full overwrites its top entry (counted)
+    auto push = [&](int c, int i, float t) {
+      const bool was_full = st.push(c, i, t);
+      if constexpr (kStats) {
+        if (was_full) atomicAdd(full_count, 1);
+      }
+    };
     auto child = [&](float x0, float y0, float z0, float x1, float y1, float z1, int code,
                      int cnt) {
       if (code < 0 && cnt == 0) return;  // empty slot
@@ -529,7 +551,7 @@ __device__ __forceinline__ bool visit(Walker& w, Stack<kTlas>& st,
         }
       }
       if (tn < nx_tn) {
-        if (sd_tn != kNone) st.push(sd_code, sd_inst, sd_tn);
+        if (sd_tn != kNone) push(sd_code, sd_inst, sd_tn);
         sd_code = nx_code;
         sd_inst = nx_inst;
         sd_tn = nx_tn;
@@ -537,26 +559,26 @@ __device__ __forceinline__ bool visit(Walker& w, Stack<kTlas>& st,
         nx_inst = e_inst;
         nx_tn = tn;
       } else if (tn < sd_tn) {
-        if (sd_tn != kNone) st.push(sd_code, sd_inst, sd_tn);
+        if (sd_tn != kNone) push(sd_code, sd_inst, sd_tn);
         sd_code = e_code;
         sd_inst = e_inst;
         sd_tn = tn;
       } else {
-        st.push(e_code, e_inst, tn);
+        push(e_code, e_inst, tn);
       }
     };
-    for_children(row, child);
-    if (sd_tn != kNone) st.push(sd_code, sd_inst, sd_tn);
+    for_children<A>(row, child);
+    if (sd_tn != kNone) push(sd_code, sd_inst, sd_tn);
     w.node = nx_code;
     w.inst = nx_inst;
   }
   return ++w.it < kMaxIters;
 }
 
-// One lane of the nearest-first walk for `persistent`: K1/K2 (TlasEntry)
-// and K3/K5 (ItemEntry) instantiate it. The stack carries instances only
-// where the walk can change instance (from the TLAS).
-template <bool kAnyHit, bool kStats, class Entry>
+// One lane of the nearest-first walk of an A-wide scene for `persistent`:
+// K1/K2 (TlasEntry) and K3/K5 (ItemEntry) instantiate it. The stack carries
+// instances only where the walk can change instance (from the TLAS).
+template <bool kAnyHit, bool kStats, int A, class Entry>
 struct WalkLane {
   Walker& w;
   Stack<Entry::kTlas>& st;
@@ -578,6 +600,7 @@ struct WalkLane {
   float* out_v;
   bool* out_occluded;
   int4* out_stats;
+  int* full_count;  // the counting instance's full-stack pushes (next + 1)
 
   __device__ __forceinline__ bool start(int i) {
     if (rfw::start(w, st, i, entry, ray_o, ray_d, t_limit)) return true;
@@ -587,8 +610,8 @@ struct WalkLane {
   __device__ __forceinline__ bool pop() { return rfw::pop(w, st); }
   __device__ __forceinline__ bool at_leaf() const { return w.node <= -2; }
   __device__ __forceinline__ bool visit() {
-    return rfw::visit<kAnyHit, kStats, Entry::kTlas>(w, st, nodes, n_nodes, tris, n_tri_rows,
-                                                     insts, n_inst, roots);
+    return rfw::visit<kAnyHit, kStats, Entry::kTlas, A>(w, st, full_count, nodes, n_nodes, tris,
+                                                        n_tri_rows, insts, n_inst, roots);
   }
   __device__ __forceinline__ void finish(int i) {
     rfw::finish<kAnyHit, kStats>(w, i, out_t, out_prim, out_inst, out_u, out_v,
@@ -596,9 +619,10 @@ struct WalkLane {
   }
 };
 
-// The walk of n rays (K1/K2) or items (K3/K5) by persistent warps, each
-// started as `entry` says.
-template <bool kAnyHit, bool kStats, class Entry>
+// The walk of n rays (K1/K2) or items (K3/K5) over an A-wide scene by
+// persistent warps, each started as `entry` says. next[0] is the warps' ray
+// counter; the counting instance adds its full-stack pushes to next[1].
+template <bool kAnyHit, bool kStats, int A, class Entry>
 __device__ __forceinline__ void walk_rays(
     const Entry& entry, const int* __restrict__ nodes, int n_nodes,
     const float4* __restrict__ tris, int n_tri_rows, const float4* __restrict__ insts,
@@ -609,11 +633,28 @@ __device__ __forceinline__ void walk_rays(
     int* __restrict__ next, int4* __restrict__ out_stats, long long* __restrict__ warp_ns) {
   Stack<Entry::kTlas> st;
   Walker w;
-  WalkLane<kAnyHit, kStats, Entry> lane{w, st, entry, nodes, n_nodes, tris, n_tri_rows,
-                                        insts, n_inst, roots, ray_o, ray_d, t_limit, out_t,
-                                        out_prim, out_inst, out_u, out_v, out_occluded,
-                                        out_stats};
+  WalkLane<kAnyHit, kStats, A, Entry> lane{w, st, entry, nodes, n_nodes, tris, n_tri_rows,
+                                           insts, n_inst, roots, ray_o, ray_d, t_limit, out_t,
+                                           out_prim, out_inst, out_u, out_v, out_occluded,
+                                           out_stats, next + 1};
   persistent<kStats>(lane, n, next, warp_ns);
+}
+
+// f(std::integral_constant<int, A>) for the supernode arity A = `arity` (8,
+// 16 or 32): how a C entry point picks the walk's instance for a prepared
+// scene; cudaErrorInvalidValue for another arity.
+template <class F>
+int by_arity(int arity, F&& f) {
+  switch (arity) {
+    case 8:
+      return f(std::integral_constant<int, 8>{});
+    case 16:
+      return f(std::integral_constant<int, 16>{});
+    case 32:
+      return f(std::integral_constant<int, 32>{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // ---------------------------------------------------------------- launch shape

@@ -39,9 +39,11 @@
 // the instance ids of entries with equal te can change places, or change
 // which of them is kept at the K-th slot.
 //
-// The counting instance (kStats) also writes per ray the internal-node
-// visits and child box tests (int4: nodes, boxes, 0, 0) and each warp's
-// first and last %globaltimer.
+// As K1, one instance per supernode arity A (8, 16 or 32) and K, picked by
+// the prepared scene's arity. The counting instance (kStats) also writes
+// per ray the internal-node visits and child box tests (int4: nodes, boxes,
+// 0, 0), each warp's first and last %globaltimer and the count of pushes
+// that found the stack full.
 
 #include "bvh_common.cuh"
 
@@ -49,9 +51,19 @@ namespace {
 
 using namespace rfw;
 
-// One ray's K-nearest walk, a lane of `persistent`.
-template <int K, bool kStats>
-struct EntryLane {
+// Where the counting instance adds its pushes that find the stack full
+// (next_ray + 1); the default instance's lane has no such member (an empty
+// base), so its layout and code are the walk's without the count.
+template <bool kStats>
+struct FullCount {};
+template <>
+struct FullCount<true> {
+  int* full_count;
+};
+
+// One ray's K-nearest walk over an A-wide scene, a lane of `persistent`.
+template <int K, bool kStats, int A>
+struct EntryLane : FullCount<kStats> {
   Stack<false>& st;
   const int* nodes;
   int n_nodes;
@@ -113,13 +125,21 @@ struct EntryLane {
 
   __device__ __forceinline__ bool at_leaf() const { return false; }
 
+  // A push that found the stack full overwrote its top entry: the counting
+  // instance counts it.
+  __device__ __forceinline__ void count_full(bool was_full) {
+    if constexpr (kStats) {
+      if (was_full) atomicAdd(this->full_count, 1);
+    }
+  }
+
   __device__ __forceinline__ bool visit() {
     if (node < 0 || node >= n_nodes) {  // malformed code: drop it
       node = -1;
       return ++it < kMaxIters;
     }
     if (kStats) ++n_visits;
-    const int* row = nodes + static_cast<size_t>(node) * kNodeInts;
+    const int* row = nodes + static_cast<size_t>(node) * kNodeInts<A>;
     int nx_code = -1, sd_code = -1;
     float nx_te = kNone, sd_te = kNone;
     auto child = [&](float x0, float y0, float z0, float x1, float y1, float z1, int code,
@@ -148,21 +168,21 @@ struct EntryLane {
         return;
       }
       if (te < nx_te) {
-        if (sd_te != kNone) st.push(sd_code, 0, sd_te);
+        if (sd_te != kNone) count_full(st.push(sd_code, 0, sd_te));
         sd_code = nx_code;
         sd_te = nx_te;
         nx_code = code;
         nx_te = te;
       } else if (te < sd_te) {
-        if (sd_te != kNone) st.push(sd_code, 0, sd_te);
+        if (sd_te != kNone) count_full(st.push(sd_code, 0, sd_te));
         sd_code = code;
         sd_te = te;
       } else {
-        st.push(code, 0, te);
+        count_full(st.push(code, 0, te));
       }
     };
-    for_children(row, child);
-    if (sd_te != kNone) st.push(sd_code, 0, sd_te);
+    for_children<A>(row, child);
+    if (sd_te != kNone) count_full(st.push(sd_code, 0, sd_te));
     node = nx_code;
     return ++it < kMaxIters;
   }
@@ -177,7 +197,7 @@ struct EntryLane {
   }
 };
 
-template <int K, bool kStats>
+template <int K, bool kStats, int A>
 __global__ void __launch_bounds__(kWalkBlock, kMinBlocks) entries_kernel(
     const int* __restrict__ nodes, int n_nodes, int tlas_root,
     const float* __restrict__ ray_o, const float* __restrict__ ray_d,
@@ -186,16 +206,17 @@ __global__ void __launch_bounds__(kWalkBlock, kMinBlocks) entries_kernel(
     int* __restrict__ next_ray, int4* __restrict__ out_stats,
     long long* __restrict__ warp_ns) {
   Stack<false> st;
-  EntryLane<K, kStats> lane{st,    nodes,         n_nodes, tlas_root, ray_o,
-                            ray_d, t_limit,       out_t,   out_inst,  out_stats};
+  EntryLane<K, kStats, A> lane{{},    st,      nodes, n_nodes,  tlas_root, ray_o,
+                               ray_d, t_limit, out_t, out_inst, out_stats};
+  if constexpr (kStats) lane.full_count = next_ray + 1;
   persistent<kStats>(lane, n_rays, next_ray, warp_ns);
 }
 
-template <int K, bool kStats>
+template <int K, bool kStats, int A>
 int launch(const void* nodes, int n_nodes, int tlas_root, const void* ray_o,
            const void* ray_d, const void* t_limit, int n_rays, void* out_t, void* out_inst,
            void* next_ray, void* out_stats, void* warp_ns, cudaStream_t s) {
-  return launch_persistent<entries_kernel<K, kStats>>(
+  return launch_persistent<entries_kernel<K, kStats, A>>(
       n_rays, s, static_cast<const int*>(nodes), n_nodes, tlas_root,
       static_cast<const float*>(ray_o), static_cast<const float*>(ray_d),
       static_cast<const float*>(t_limit), n_rays, static_cast<float*>(out_t),
@@ -203,19 +224,19 @@ int launch(const void* nodes, int n_nodes, int tlas_root, const void* ray_o,
       static_cast<int4*>(out_stats), static_cast<long long*>(warp_ns));
 }
 
-// launch<K, kStats>, or info<entries_kernel<K, kStats>> with `query`, for K
-// in 1..8.
-template <bool kStats>
+// launch<K, kStats, A>, or info<entries_kernel<K, kStats, A>> with `query`,
+// for K in 1..8.
+template <bool kStats, int A>
 int dispatch(int K, bool query, int n_rays, int* shape, const void* nodes, int n_nodes,
              int tlas_root, const void* ray_o, const void* ray_d, const void* t_limit,
              void* out_t, void* out_inst, void* next_ray, void* out_stats, void* warp_ns,
              cudaStream_t s) {
 #define RFW_K(k)                                                                           \
   case k:                                                                                  \
-    return query ? info<entries_kernel<k, kStats>>(n_rays, shape)                          \
-                 : launch<k, kStats>(nodes, n_nodes, tlas_root, ray_o, ray_d, t_limit,     \
-                                     n_rays, out_t, out_inst, next_ray, out_stats, warp_ns, \
-                                     s);
+    return query ? info<entries_kernel<k, kStats, A>>(n_rays, shape)                       \
+                 : launch<k, kStats, A>(nodes, n_nodes, tlas_root, ray_o, ray_d, t_limit,  \
+                                        n_rays, out_t, out_inst, next_ray, out_stats,      \
+                                        warp_ns, s);
   switch (K) {
     RFW_K(1)
     RFW_K(2)
@@ -233,36 +254,45 @@ int dispatch(int K, bool query, int n_rays, int* shape, const void* nodes, int n
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes). rfw_tlas_entries launches on
+// Plain C entry points (loaded with ctypes). rfw_tlas_entries launches the
+// instance for K and the scene's supernode `arity` (8, 16 or 32) on
 // `stream` and returns cudaGetLastError() of the launch (0 = success), or
-// cudaErrorInvalidValue for K outside 1..8. It allocates nothing and does
-// not synchronize; `next_ray` is one int32 that the caller zeroes, the
-// warps' shared ray counter. With `out_stats` (int4 per ray: internal-node
-// visits, child box tests, 0, 0) it launches the counting instance, which
-// also writes each warp's first and last %globaltimer to `warp_ns` (2 int64
-// per launched warp).
-extern "C" int rfw_tlas_entries(int K, const void* nodes, int n_nodes, int tlas_root,
+// cudaErrorInvalidValue for K outside 1..8 or another arity. It allocates
+// nothing and does not synchronize; `next_ray` is two int32 that the caller
+// zeroes, the warps' shared ray counter and the counting instance's count
+// of pushes that found the stack full. With `out_stats` (int4 per ray:
+// internal-node visits, child box tests, 0, 0) it launches the counting
+// instance, which also writes each warp's first and last %globaltimer to
+// `warp_ns` (2 int64 per launched warp).
+extern "C" int rfw_tlas_entries(int K, int arity, const void* nodes, int n_nodes, int tlas_root,
                                 const void* ray_o, const void* ray_d,
                                 const void* t_limit, int n_rays, void* out_t,
                                 void* out_inst, void* next_ray, void* out_stats,
                                 void* warp_ns, void* stream) {
   if (n_rays <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_stats != nullptr
-             ? dispatch<true>(K, false, n_rays, nullptr, nodes, n_nodes, tlas_root, ray_o,
-                              ray_d, t_limit, out_t, out_inst, next_ray, out_stats, warp_ns, s)
-             : dispatch<false>(K, false, n_rays, nullptr, nodes, n_nodes, tlas_root, ray_o,
-                               ray_d, t_limit, out_t, out_inst, next_ray, out_stats, warp_ns,
-                               s);
+  return by_arity(arity, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    return out_stats != nullptr
+               ? dispatch<true, A>(K, false, n_rays, nullptr, nodes, n_nodes, tlas_root, ray_o,
+                                   ray_d, t_limit, out_t, out_inst, next_ray, out_stats,
+                                   warp_ns, s)
+               : dispatch<false, A>(K, false, n_rays, nullptr, nodes, n_nodes, tlas_root,
+                                    ray_o, ray_d, t_limit, out_t, out_inst, next_ray,
+                                    out_stats, warp_ns, s);
+  });
 }
 
-// The launch shape of the kernel instance for K (1..8) for n_rays, into
-// out[8], as rfw_traverse_info.
-extern "C" int rfw_tlas_entries_info(int K, int stats, int n_rays, void* out) {
+// The launch shape of the kernel instance for K (1..8), counting and arity
+// for n_rays, into out[8], as rfw_traverse_info.
+extern "C" int rfw_tlas_entries_info(int K, int stats, int arity, int n_rays, void* out) {
   int* o = static_cast<int*>(out);
   const cudaStream_t s = nullptr;
-  return stats ? dispatch<true>(K, true, n_rays, o, nullptr, 0, 0, nullptr, nullptr, nullptr,
-                                nullptr, nullptr, nullptr, nullptr, nullptr, s)
-               : dispatch<false>(K, true, n_rays, o, nullptr, 0, 0, nullptr, nullptr, nullptr,
-                                 nullptr, nullptr, nullptr, nullptr, nullptr, s);
+  return by_arity(arity, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    return stats ? dispatch<true, A>(K, true, n_rays, o, nullptr, 0, 0, nullptr, nullptr,
+                                     nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, s)
+                 : dispatch<false, A>(K, true, n_rays, o, nullptr, 0, 0, nullptr, nullptr,
+                                      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, s);
+  });
 }

@@ -24,12 +24,15 @@
 // lanes are idle, while-while, nearest-first children with pop-time
 // culling, the next slot's loads ahead, the stack in local memory (without
 // instances: an item never leaves its BLAS). An empty slot is written when
-// it is fetched and leaves its lane idle. The counting instance (kStats)
-// writes K1's per-item counts and warp spans.
+// it is fetched and leaves its lane idle. As K1, one instance per supernode
+// arity A (8, 16 or 32), picked by the prepared scene's. The counting
+// instance (kStats) writes K1's per-item counts, warp spans and full-stack
+// pushes.
 //
 // dense_items_kernel<kAnyHit, kStats> replaces _dense_kernel_factory (K6):
 // one thread per item slot takes the treelets of its instance mesh's range
-// [tlo, thi) in order, with no node walk and no stack. The TPU kernel
+// [tlo, thi) in order, with no node walk and no stack (so one instance
+// serves every arity: prepare_scene builds its tables from the pack's rows). The TPU kernel
 // streams every treelet whole, because its vector unit wants a fixed run;
 // here the treelets' boxes (prepare_scene's tbox) are read in one
 // independent run and slab-tested with the walk's rule (tn <= tf, tf >
@@ -68,7 +71,7 @@ namespace {
 
 using namespace rfw;
 
-template <bool kAnyHit, bool kStats>
+template <bool kAnyHit, bool kStats, int A>
 __global__ void __launch_bounds__(kWalkBlock, kMinBlocks) items_kernel(
     const int* __restrict__ nodes, int n_nodes,
     const float4* __restrict__ tris, int n_tri_rows,
@@ -81,10 +84,10 @@ __global__ void __launch_bounds__(kWalkBlock, kMinBlocks) items_kernel(
     float* __restrict__ out_v, bool* __restrict__ out_occluded,
     int* __restrict__ next_item, int4* __restrict__ out_stats,
     long long* __restrict__ warp_ns) {
-  walk_rays<kAnyHit, kStats>(ItemEntry{item_inst, roots, n_inst}, nodes, n_nodes, tris,
-                             n_tri_rows, insts, n_inst, roots, ray_o, ray_d, t_limit, n_items,
-                             out_t, out_prim, out_inst, out_u, out_v, out_occluded, next_item,
-                             out_stats, warp_ns);
+  walk_rays<kAnyHit, kStats, A>(ItemEntry{item_inst, roots, n_inst}, nodes, n_nodes, tris,
+                                n_tri_rows, insts, n_inst, roots, ray_o, ray_d, t_limit,
+                                n_items, out_t, out_prim, out_inst, out_u, out_v, out_occluded,
+                                next_item, out_stats, warp_ns);
 }
 
 __device__ __forceinline__ void write_empty(int i, float t_limit, float* out_t,
@@ -197,14 +200,14 @@ __global__ void __launch_bounds__(kBlock) dense_items_kernel(
   }
 }
 
-template <bool kAnyHit, bool kStats>
+template <bool kAnyHit, bool kStats, int A>
 int launch_items(const void* nodes, int n_nodes, const void* tris, int n_tri_rows,
                  const void* insts, int n_inst, const void* roots, const void* item_inst,
                  const void* ray_o, const void* ray_d, const void* t_limit, int n_items,
                  void* out_t, void* out_prim, void* out_inst, void* out_u, void* out_v,
                  void* out_occluded, void* next_item, void* out_stats, void* warp_ns,
                  cudaStream_t s) {
-  return launch_persistent<items_kernel<kAnyHit, kStats>>(
+  return launch_persistent<items_kernel<kAnyHit, kStats, A>>(
       n_items, s, static_cast<const int*>(nodes), n_nodes,
       static_cast<const float4*>(tris), n_tri_rows,
       static_cast<const float4*>(insts), n_inst,
@@ -255,14 +258,16 @@ int dense_info(int n_items, int* out) {
 
 // Plain C entry points (loaded with ctypes). Each launches on `stream` and
 // returns cudaGetLastError() of the launch (0 = success). They allocate
-// nothing and do not synchronize. rfw_items' `next_item` is one int32 that
-// the caller zeroes, the warps' shared item counter; with `out_stats` (int4
-// per item: internal-node visits, child box tests, leaf visits, slot tests;
-// zero for an empty slot) it launches the counting instance, which also
-// writes each warp's first and last %globaltimer to `warp_ns` (2 int64 per
-// launched warp).
+// nothing and do not synchronize. rfw_items launches the instance for the
+// scene's supernode `arity` (8, 16 or 32; cudaErrorInvalidValue for
+// another); its `next_item` is two int32 that the caller zeroes, the warps'
+// shared item counter and the counting instance's count of pushes that
+// found the stack full; with `out_stats` (int4 per item: internal-node
+// visits, child box tests, leaf visits, slot tests; zero for an empty slot)
+// it launches the counting instance, which also writes each warp's first
+// and last %globaltimer to `warp_ns` (2 int64 per launched warp).
 extern "C" int rfw_items(
-    int any_hit,
+    int any_hit, int arity,
     const void* nodes, int n_nodes,
     const void* tris, int n_tri_rows,
     const void* insts, int n_inst,
@@ -272,25 +277,31 @@ extern "C" int rfw_items(
     void* out_occluded, void* next_item, void* out_stats, void* warp_ns, void* stream) {
   if (n_items <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RFW_LAUNCH(A, S)                                                                    \
-  launch_items<A, S>(nodes, n_nodes, tris, n_tri_rows, insts, n_inst, roots, item_inst,     \
-                     ray_o, ray_d, t_limit, n_items, out_t, out_prim, out_inst, out_u, out_v, \
-                     out_occluded, next_item, out_stats, warp_ns, s)
-  if (out_stats != nullptr) return any_hit ? RFW_LAUNCH(true, true) : RFW_LAUNCH(false, true);
-  return any_hit ? RFW_LAUNCH(true, false) : RFW_LAUNCH(false, false);
+  return by_arity(arity, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+#define RFW_LAUNCH(H, S)                                                                     \
+  launch_items<H, S, A>(nodes, n_nodes, tris, n_tri_rows, insts, n_inst, roots, item_inst,  \
+                        ray_o, ray_d, t_limit, n_items, out_t, out_prim, out_inst, out_u,   \
+                        out_v, out_occluded, next_item, out_stats, warp_ns, s)
+    if (out_stats != nullptr) return any_hit ? RFW_LAUNCH(true, true) : RFW_LAUNCH(false, true);
+    return any_hit ? RFW_LAUNCH(true, false) : RFW_LAUNCH(false, false);
 #undef RFW_LAUNCH
+  });
 }
 
-// The launch shape of one items kernel instance for n_items, into out[8],
-// as rfw_traverse_info.
-extern "C" int rfw_items_info(int any_hit, int stats, int n_items, void* out) {
+// The launch shape of one items kernel instance (any hit, counting, arity)
+// for n_items, into out[8], as rfw_traverse_info.
+extern "C" int rfw_items_info(int any_hit, int stats, int arity, int n_items, void* out) {
   int* o = static_cast<int*>(out);
-  if (stats) {
-    return any_hit ? info<items_kernel<true, true>>(n_items, o)
-                   : info<items_kernel<false, true>>(n_items, o);
-  }
-  return any_hit ? info<items_kernel<true, false>>(n_items, o)
-                 : info<items_kernel<false, false>>(n_items, o);
+  return by_arity(arity, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    if (stats) {
+      return any_hit ? info<items_kernel<true, true, A>>(n_items, o)
+                     : info<items_kernel<false, true, A>>(n_items, o);
+    }
+    return any_hit ? info<items_kernel<true, false, A>>(n_items, o)
+                   : info<items_kernel<false, false, A>>(n_items, o);
+  });
 }
 
 // rfw_dense_items: K6 as rfw_items, with the per-treelet tables tbox

@@ -59,11 +59,11 @@ __global__ void __launch_bounds__(kBlock) grid_kernel(
       const int n = floor_mod(n_inst, 7) + 4;
       for (int c = 0; c < n; ++c) t = __fmul_rn(t, 0.9999f);
     }
-    if (kVariant == kFetch8) {
+    if (kVariant == kFetch8) {  // the first child code of 8-wide rows
       int idx = 0, code = 0;
       for (int k = 0; k < 8; ++k) {
-        code = __ldg(nodes + static_cast<size_t>(floor_mod(idx, n_nodes)) * kNodeInts +
-                     6 * kArity);
+        code = __ldg(nodes + static_cast<size_t>(floor_mod(idx, n_nodes)) * kNodeInts<8> +
+                     6 * 8);
         idx += 1 + floor_mod(code, 2);
       }
       odd = odd || code == INT_MIN;

@@ -35,7 +35,7 @@ _p, _i = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "traverse": {
         "rfw_traverse": [
-            _i,  # any_hit
+            _i, _i,  # any_hit, arity
             _p, _i,  # nodes, n_nodes
             _p, _i,  # tris, n_tri_rows
             _p, _i,  # insts, n_inst
@@ -43,14 +43,14 @@ SIGNATURES = {
             _p, _p, _p, _i,  # ray_o, ray_d, t_limit, n_rays
             _p, _p, _p, _p, _p,  # out_t, out_prim, out_inst, out_u, out_v
             _p,  # out_occluded
-            _p, _p, _p,  # next_ray, out_stats, warp_ns
+            _p, _p, _p,  # next_ray (2 int32), out_stats, warp_ns
             _p,  # stream
         ],
-        "rfw_traverse_info": [_i, _i, _i, _p],  # any_hit, stats, n_rays, out[8]
+        "rfw_traverse_info": [_i, _i, _i, _i, _p],  # any_hit, stats, arity, n_rays, out[8]
     },
     "traverse_items": {
         "rfw_items": [
-            _i,  # any_hit
+            _i, _i,  # any_hit, arity
             _p, _i,  # nodes, n_nodes
             _p, _i,  # tris, n_tri_rows
             _p, _i,  # insts, n_inst
@@ -59,10 +59,10 @@ SIGNATURES = {
             _p, _p, _p, _i,  # ray_o, ray_d, t_limit, n_items
             _p, _p, _p, _p, _p,  # out_t, out_prim, out_inst, out_u, out_v
             _p,  # out_occluded
-            _p, _p, _p,  # next_item, out_stats, warp_ns
+            _p, _p, _p,  # next_item (2 int32), out_stats, warp_ns
             _p,  # stream
         ],
-        "rfw_items_info": [_i, _i, _i, _p],  # any_hit, stats, n_items, out[8]
+        "rfw_items_info": [_i, _i, _i, _i, _p],  # any_hit, stats, arity, n_items, out[8]
         "rfw_dense_items": [
             _i,  # any_hit
             _p, _i,  # tris, n_tri_rows
@@ -80,15 +80,15 @@ SIGNATURES = {
     },
     "traverse_entries": {
         "rfw_tlas_entries": [
-            _i,  # K
+            _i, _i,  # K, arity
             _p, _i,  # nodes, n_nodes
             _i,  # tlas_root
             _p, _p, _p, _i,  # ray_o, ray_d, t_limit, n_rays
             _p, _p,  # out_t (R,K), out_inst (R,K)
-            _p, _p, _p,  # next_ray, out_stats, warp_ns
+            _p, _p, _p,  # next_ray (2 int32), out_stats, warp_ns
             _p,  # stream
         ],
-        "rfw_tlas_entries_info": [_i, _i, _i, _p],  # K, stats, n_rays, out[8]
+        "rfw_tlas_entries_info": [_i, _i, _i, _i, _p],  # K, stats, arity, n_rays, out[8]
     },
     "ubench_leaf": {
         "rfw_ubench_leaf": [

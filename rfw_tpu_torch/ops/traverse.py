@@ -38,7 +38,8 @@ from rfw_tpu_torch.render.intersect import Hit, T_MAX, T_MIN
 from rfw_tpu_torch.render.intersect import limit_of as _t_limit
 from rfw_tpu_torch.render.intersect import safe_inv as _safe_inv
 
-ARITY = 8
+#: supernode widths the walks take (the pack's RFW_WIDE_ARITY)
+ARITIES = (8, 16, 32)
 STACK_DEPTH = 96
 TSHIFT = TREELET.bit_length() - 1
 #: per-ray iteration cap: a malformed BVH yields a wrong but finite result
@@ -55,7 +56,9 @@ class WalkStats(NamedTuple):
     `count`, also where an any-hit walk stops inside it; zero for the TLAS
     entries walk, which visits no treelet). `warp_ns` is the kernel's
     (warps, 2) int64 first and last %globaltimer of each launched warp, None
-    for the plain walk.
+    for the plain walk. `full` is the call's count of stack pushes that
+    found the stack full (a 0-d int32 tensor; such a push overwrites the
+    top entry, which can lose a subtree).
 
     rfw_tpu's `stats=True` (`pallas_closest_hit`) stamps one while-iteration
     count per Pallas program, whose walk also visits the empty TLAS slots
@@ -66,15 +69,16 @@ class WalkStats(NamedTuple):
     leaves: torch.Tensor
     tris: torch.Tensor
     warp_ns: Optional[torch.Tensor] = None
+    full: Optional[torch.Tensor] = None
 
 
 class PreparedScene(NamedTuple):
     """Node-major traversal arrays (all on one device).
 
-    nodes: (S, 64) i32 — supernode rows, BLAS supernodes first, then the
-      TLAS ones: 48 box-float bit patterns (child k: min3|max3 at 6k..6k+5),
-      8 child codes, 8 child counts. TLAS internal codes are offset by the
-      BLAS supernode count.
+    nodes: (S, 8A) i32 — A-wide supernode rows (A = `arity`, 8, 16 or 32),
+      BLAS supernodes first, then the TLAS ones: 6A box-float bit patterns
+      (child k: min3|max3 at 6k..6k+5), A child codes, A child counts. TLAS
+      internal codes are offset by the BLAS supernode count.
     tris: (C*TREELET, 16) f32 — per triangle slot, the Woop affine in
       floats 0..11 (rows u, v, w of [r | b]); floats 12..15 are zero.
     insts: (I+1, 16) f32 — per instance the world->object 3x4 affine in
@@ -91,6 +95,7 @@ class PreparedScene(NamedTuple):
     tcount: (C,) i32 — per treelet, that leaf's slot count (its real
       triangles; the slots past it are all-zero Woop rows), 0 where no leaf
       names the treelet.
+    arity: the supernode width A of the pack (`render.pack.wide_depth`).
     """
 
     nodes: torch.Tensor
@@ -105,6 +110,7 @@ class PreparedScene(NamedTuple):
     thi: torch.Tensor
     tbox: torch.Tensor
     tcount: torch.Tensor
+    arity: int
 
 
 def _woop12(v0, e1, e2):
@@ -128,10 +134,12 @@ def _woop12(v0, e1, e2):
 
 def prepare_scene(scene) -> PreparedScene:
     """Build the kernel's node-major arrays from a TraceScene of tensors,
-    on the scene's device."""
-    if scene.blas8_code.shape[1] != ARITY:
-        raise ValueError(f"supernode arity {scene.blas8_code.shape[1]}; the "
-                         f"traversal is written for {ARITY}")
+    on the scene's device. The supernode width is the pack's (8, 16 or 32
+    children; another raises)."""
+    arity = int(scene.blas8_code.shape[1])
+    if arity not in ARITIES or scene.tlas8_code.shape[1] != arity:
+        raise ValueError(f"supernode arity {arity} (TLAS "
+                         f"{scene.tlas8_code.shape[1]}); the traversal takes {ARITIES}")
     dev = scene.tri_v0.device
     nb8 = int(scene.blas8_box.shape[0])
     t_code = scene.tlas8_code.to(torch.int32)
@@ -183,13 +191,14 @@ def prepare_scene(scene) -> PreparedScene:
                          inst_min=scene.inst_aabb_min.to(torch.float32).contiguous(),
                          inst_max=scene.inst_aabb_max.to(torch.float32).contiguous(),
                          tlo=tlo.to(torch.int32).contiguous(),
-                         thi=thi.to(torch.int32).contiguous(), tbox=tbox, tcount=tcount)
+                         thi=thi.to(torch.int32).contiguous(), tbox=tbox, tcount=tcount,
+                         arity=arity)
 
 
 def _treelet_tables(box, code, cnt, n_treelets: int):
     """Per treelet, the box and slot count of the BLAS leaf child that names
-    it, from the BLAS supernode rows (box (S,48) f32, code and cnt (S,8)
-    i32): a child with code < 0 and cnt > 0 is a leaf whose payload -code-1
+    it, from the A-wide BLAS supernode rows (box (S,6A) f32, code and cnt
+    (S,A) i32): a child with code < 0 and cnt > 0 is a leaf whose payload -code-1
     is its first triangle row; its treelet and count are decoded as the
     walk decodes a leaf (csrc/bvh_common.cuh::visit). Returns (tbox
     (n_treelets, 8) f32, tcount (n_treelets,) i32)."""
@@ -198,7 +207,7 @@ def _treelet_tables(box, code, cnt, n_treelets: int):
     last = (-code[leaf] - 1) + torch.clamp(cnt[leaf] - 1, max=TREELET - 1)
     tid = (last >> TSHIFT).long()
     ok = tid < n_treelets
-    tid, lbox = tid[ok], box.reshape(-1, ARITY, 6)[leaf][ok]
+    tid, lbox = tid[ok], box.reshape(-1, code.shape[1], 6)[leaf][ok]
     tbox = torch.zeros((n_treelets, 8), dtype=torch.float32, device=dev)
     tbox[tid, 0:3] = lbox[:, 0:3]
     tbox[tid, 4:7] = lbox[:, 3:6]
@@ -252,7 +261,7 @@ def _leaf_slots(tris, first, count, obj, tcur):
 
 
 def _child_slab(bx, c, obj_o, inv):
-    """Slab test of child c of boxes bx (n, 8, 6) for rays with origins
+    """Slab test of child c of boxes bx (n, A, 6) for rays with origins
     obj_o and inverse directions inv (3 tuples of (n,)): (tn, tf)."""
     tx0 = (bx[:, c, 0] - obj_o[0]) * inv[0]
     tx1 = (bx[:, c, 3] - obj_o[0]) * inv[0]
@@ -270,12 +279,11 @@ def _child_slab(bx, c, obj_o, inv):
 
 
 def node_arrays(ps: PreparedScene):
-    """(boxes (S,8,6) f32, codes (S,8) i32, counts (S,8) i32) of the
+    """(boxes (S,A,6) f32, codes (S,A) i32, counts (S,A) i32) of the A-wide
     supernode rows."""
-    S = ps.nodes.shape[0]
-    boxes = ps.nodes[:, :6 * ARITY].contiguous().view(torch.float32)
-    return (boxes.reshape(S, ARITY, 6), ps.nodes[:, 6 * ARITY:7 * ARITY],
-            ps.nodes[:, 7 * ARITY:8 * ARITY])
+    S, A = ps.nodes.shape[0], ps.arity
+    boxes = ps.nodes[:, :6 * A].contiguous().view(torch.float32)
+    return boxes.reshape(S, A, 6), ps.nodes[:, 6 * A:7 * A], ps.nodes[:, 7 * A:8 * A]
 
 
 def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
@@ -290,7 +298,8 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
     nothing. stats: a dict whose "nodes", "boxes", "leaves" and "tris"
     entries gain the internal-node visits, child box tests, treelet leaf
     visits and triangle slot tests the walk made, and whose "per_ray" entry
-    becomes the same counts per ray (`WalkStats`)."""
+    becomes the same counts per ray (`WalkStats`, with the call's pushes
+    that found the stack full, which "full" also gains)."""
     dev = ray_o.device
     R = ray_o.shape[0]
     i32 = torch.int32
@@ -317,6 +326,7 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
     act = torch.arange(R, device=dev)
     if stats is not None:
         per_ray = WalkStats(*(torch.zeros(R, dtype=i32, device=dev) for _ in range(4)))
+        full = 0
 
     for _ in range(MAX_ITERS):
         if act.numel() == 0:
@@ -396,7 +406,7 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
                 per_ray.boxes.index_add_(0, rays, boxes_r)
                 stats["nodes"] = stats.get("nodes", 0) + int(inner.numel())
                 stats["boxes"] = stats.get("boxes", 0) + int(boxes_r.sum())
-            for c in range(ARITY):
+            for c in range(ps.arity):
                 code, cnt = cd[:, c], cn[:, c]
                 tn, tf = _child_slab(bx, c, obj_o, inv)
                 hitc = ((tn <= tf) & (tf > T_MIN) & (tn < tb)
@@ -414,6 +424,8 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
                     slot = torch.clamp(spi[push], max=STACK_DEPTH - 1)
                     stack[rays[push], slot, 0] = next_code[push]
                     stack[rays[push], slot, 1] = next_inst[push]
+                    if stats is not None:
+                        full += int((spi[push] >= STACK_DEPTH).sum())
                 spi = torch.where(push, torch.clamp(spi + 1, max=STACK_DEPTH), spi)
                 next_code = torch.where(hitc, e_code, next_code)
                 next_inst = torch.where(hitc, e_inst, next_inst)
@@ -428,7 +440,8 @@ def _plain_walk(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool,
             act = act[~finished]
 
     if stats is not None:
-        stats["per_ray"] = per_ray
+        stats["full"] = stats.get("full", 0) + full
+        stats["per_ray"] = per_ray._replace(full=torch.tensor(full, dtype=i32, device=dev))
     if any_hit:
         return occluded
     return Hit(t_best, prim, hit_inst, hit_u, hit_v)
@@ -489,19 +502,21 @@ def stream_of(dev) -> ctypes.c_void_p:
 
 
 def query_shape(library: str, fn: str, variant: int, stats: bool, n: int,
-                device=None) -> dict:
+                device=None, arity=None) -> dict:
     """The launch shape of one instance of a persistent walk kernel
     (`csrc/bvh_common.cuh::info`), through `fn(variant, stats, n, out)` of
-    the kernel library `library`, on `device` (default: the current CUDA
-    device): block threads, resident blocks per SM, SMs, registers per
-    thread, local bytes per thread, static shared bytes per block, threads
-    per SM, and the blocks launched for `n` rays."""
+    the kernel library `library` (`fn(variant, stats, arity, n, out)` for
+    the walks of an A-wide scene, given `arity`), on `device` (default: the
+    current CUDA device): block threads, resident blocks per SM, SMs,
+    registers per thread, local bytes per thread, static shared bytes per
+    block, threads per SM, and the blocks launched for `n` rays."""
     from rfw_tpu_torch.ops._build import load_library
 
     lib = load_library(library)
     out = (ctypes.c_int * 8)()
+    args = (int(variant), int(stats)) + (() if arity is None else (int(arity),))
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        rc = getattr(lib, fn)(int(variant), int(stats), int(n), out)
+        rc = getattr(lib, fn)(*args, int(n), out)
     if rc != 0:
         raise RuntimeError(f"{library} kernel query failed: cudaError {rc}")
     keys = ("block", "blocks_per_sm", "sms", "registers", "local_bytes", "shared_bytes",
@@ -509,9 +524,11 @@ def query_shape(library: str, fn: str, variant: int, stats: bool, n: int,
     return dict(zip(keys, out))
 
 
-def launch_shape(any_hit: bool, stats: bool = False, n_rays: int = 0, device=None) -> dict:
-    """The launch shape of one instance of the K1/K2 kernel (`query_shape`)."""
-    return query_shape("traverse", "rfw_traverse_info", any_hit, stats, n_rays, device)
+def launch_shape(any_hit: bool, stats: bool = False, n_rays: int = 0, device=None,
+                 arity: int = 8) -> dict:
+    """The launch shape of one instance of the K1/K2 kernel (`query_shape`)
+    for an `arity`-wide scene."""
+    return query_shape("traverse", "rfw_traverse_info", any_hit, stats, n_rays, device, arity)
 
 
 def stats_buffers(shape: dict, n: int, dev):
@@ -521,6 +538,17 @@ def stats_buffers(shape: dict, n: int, dev):
     warp_ns = torch.zeros((shape["grid"] * shape["block"] // 32, 2), dtype=torch.int64,
                           device=dev)
     return counts, warp_ns
+
+
+def counters(dev) -> torch.Tensor:
+    """The zeroed int32 pair a persistent walk launch takes: the warps' ray
+    counter and the counting instance's count of full-stack pushes."""
+    return torch.zeros(2, dtype=torch.int32, device=dev)
+
+
+def kernel_stats(counts, warp_ns, next_ray) -> WalkStats:
+    """The WalkStats of a counting launch from its outputs."""
+    return WalkStats(*counts.unbind(1), warp_ns=warp_ns, full=next_ray[1])
 
 
 def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool, stats: bool):
@@ -544,13 +572,13 @@ def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool, stats: bool
         occ = None
     counts = warp_ns = None
     if stats:
-        counts, warp_ns = stats_buffers(launch_shape(any_hit, True, R, dev), R, dev)
+        counts, warp_ns = stats_buffers(launch_shape(any_hit, True, R, dev, ps.arity), R, dev)
     out = occ if any_hit else Hit(t, prim, inst, u, v)
+    next_ray = counters(dev)
     if R > 0:
-        next_ray = torch.zeros(1, dtype=i32, device=dev)
         with torch.cuda.device(dev):
             rc = lib.rfw_traverse(
-                int(any_hit),
+                int(any_hit), ps.arity,
                 ptr(ps.nodes), ps.nodes.shape[0],
                 ptr(ps.tris), ps.tris.shape[0],
                 ptr(ps.insts), ps.n_inst,
@@ -565,7 +593,7 @@ def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, any_hit: bool, stats: bool
         LAUNCHES["occluded" if any_hit else "closest"] += 1
     if not stats:
         return out
-    return out, WalkStats(*counts.unbind(1), warp_ns=warp_ns)
+    return out, kernel_stats(counts, warp_ns, next_ray)
 
 
 def plain_stats(plain, *args):

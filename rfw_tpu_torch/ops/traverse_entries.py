@@ -24,9 +24,9 @@ from __future__ import annotations
 import torch
 
 from rfw_tpu_torch.ops.traverse import (
-    ARITY, MAX_ITERS, STACK_DEPTH, PreparedScene, WalkStats, _child_slab, _safe_inv,
-    _t_limit, check_rays, node_arrays, plain_stats, ptr, query_shape, stats_buffers,
-    stream_of,
+    MAX_ITERS, STACK_DEPTH, PreparedScene, WalkStats, _child_slab, _safe_inv, _t_limit,
+    check_rays, counters, kernel_stats, node_arrays, plain_stats, ptr, query_shape,
+    stats_buffers, stream_of,
 )
 from rfw_tpu_torch.render.intersect import T_MAX, T_MIN
 from rfw_tpu_torch.render.twophase import TlasEntries
@@ -44,7 +44,8 @@ def tlas_entries_plain(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
     device). stats: a dict whose "nodes" and "boxes" entries gain the
     internal-node visits and child box tests the walk made, and whose
     "per_ray" entry becomes the same counts per ray (`WalkStats`, no leaves
-    or slot tests)."""
+    or slot tests; with the call's pushes that found the stack full, which
+    "full" also gains)."""
     dev = ray_o.device
     R = ray_o.shape[0]
     i32 = torch.int32
@@ -62,6 +63,7 @@ def tlas_entries_plain(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
     act = torch.arange(R, device=dev)
     if stats is not None:
         per_ray = WalkStats(*(torch.zeros(R, dtype=i32, device=dev) for _ in range(4)))
+        full = 0
 
     for _ in range(MAX_ITERS):
         if act.numel() == 0:
@@ -96,7 +98,7 @@ def tlas_entries_plain(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
                 per_ray.boxes.index_add_(0, rays, boxes_r)
                 stats["nodes"] = stats.get("nodes", 0) + int(inner.numel())
                 stats["boxes"] = stats.get("boxes", 0) + int(boxes_r.sum())
-            for c in range(ARITY):
+            for c in range(ps.arity):
                 code, cnt = cd[:, c], cn[:, c]
                 tn, tf = _child_slab(bx, c, obj_o, inv)
                 te = torch.clamp(tn, min=0.0)
@@ -122,6 +124,8 @@ def tlas_entries_plain(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
                 if bool(push.any()):
                     stack[rays[push], torch.clamp(spi[push], max=STACK_DEPTH - 1)] = \
                         next_code[push]
+                    if stats is not None:
+                        full += int((spi[push] >= STACK_DEPTH).sum())
                 spi = torch.where(push, torch.clamp(spi + 1, max=STACK_DEPTH), spi)
                 next_code = torch.where(intc, code, next_code)
             ts[rays] = tsr
@@ -131,13 +135,17 @@ def tlas_entries_plain(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
         node[act] = new_node
         sp[act] = s
     if stats is not None:
-        stats["per_ray"] = per_ray
+        stats["full"] = stats.get("full", 0) + full
+        stats["per_ray"] = per_ray._replace(full=torch.tensor(full, dtype=i32, device=dev))
     return TlasEntries(ts, ins)
 
 
-def launch_shape(K: int, stats: bool = False, n_rays: int = 0, device=None) -> dict:
-    """The launch shape of the K4 kernel instance for K (`query_shape`)."""
-    return query_shape("traverse_entries", "rfw_tlas_entries_info", K, stats, n_rays, device)
+def launch_shape(K: int, stats: bool = False, n_rays: int = 0, device=None,
+                 arity: int = 8) -> dict:
+    """The launch shape of the K4 kernel instance for K and an `arity`-wide
+    scene (`query_shape`)."""
+    return query_shape("traverse_entries", "rfw_tlas_entries_info", K, stats, n_rays, device,
+                       arity)
 
 
 def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, K: int, stats: bool):
@@ -153,13 +161,13 @@ def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, K: int, stats: bool):
     ins = torch.empty((R, K), dtype=torch.int32, device=dev)
     counts = warp_ns = None
     if stats:
-        counts, warp_ns = stats_buffers(launch_shape(K, True, R, dev), R, dev)
+        counts, warp_ns = stats_buffers(launch_shape(K, True, R, dev, ps.arity), R, dev)
+    next_ray = counters(dev)
     if R > 0:
         lib = load_library("traverse_entries")
-        next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             rc = lib.rfw_tlas_entries(
-                K, ptr(ps.nodes), ps.nodes.shape[0], ps.tlas_root,
+                K, ps.arity, ptr(ps.nodes), ps.nodes.shape[0], ps.tlas_root,
                 ptr(ray_o), ptr(ray_d), ptr(tl), R, ptr(ts), ptr(ins),
                 ptr(next_ray), ptr(counts), ptr(warp_ns), stream_of(dev))
         if rc != 0:
@@ -167,7 +175,7 @@ def _launch(ps: PreparedScene, ray_o, ray_d, t_limit, K: int, stats: bool):
         LAUNCHES["entries"] += 1
     if not stats:
         return TlasEntries(ts, ins)
-    return TlasEntries(ts, ins), WalkStats(*counts.unbind(1), warp_ns=warp_ns)
+    return TlasEntries(ts, ins), kernel_stats(counts, warp_ns, next_ray)
 
 
 def tlas_entries(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,

@@ -49,8 +49,8 @@ import torch
 from rfw_tpu_torch.accel.bvh_cpu import TREELET
 from rfw_tpu_torch.ops.traverse import (
     PreparedScene, TSHIFT, WalkStats, _leaf_slots, _plain_walk, _rebase, _t_limit,
-    check_rays, closest_hit, occluded, plain_stats, ptr, query_shape, stats_buffers,
-    stream_of,
+    check_rays, closest_hit, counters, kernel_stats, occluded, plain_stats, ptr, query_shape,
+    stats_buffers, stream_of,
 )
 from rfw_tpu_torch.ops.traverse_entries import tlas_entries
 from rfw_tpu_torch.render.intersect import Hit, T_MAX
@@ -153,9 +153,12 @@ def dense_items_plain(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
 
 
 # ---------------------------------------------------------------- CUDA path
-def launch_shape(any_hit: bool, stats: bool = False, n_items: int = 0, device=None) -> dict:
-    """The launch shape of one instance of the K3/K5 kernel (`query_shape`)."""
-    return query_shape("traverse_items", "rfw_items_info", any_hit, stats, n_items, device)
+def launch_shape(any_hit: bool, stats: bool = False, n_items: int = 0, device=None,
+                 arity: int = 8) -> dict:
+    """The launch shape of one instance of the K3/K5 kernel for an
+    `arity`-wide scene (`query_shape`)."""
+    return query_shape("traverse_items", "rfw_items_info", any_hit, stats, n_items, device,
+                       arity)
 
 
 def dense_launch_shape(any_hit: bool, stats: bool = False, n_items: int = 0,
@@ -191,8 +194,10 @@ def _launch(dense: bool, ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
     out = occ if any_hit else Hit(t, prim, inst, u, v)
     counts = warp_ns = None
     if stats:
-        shape = (dense_launch_shape if dense else launch_shape)(any_hit, True, C, dev)
+        shape = (dense_launch_shape(any_hit, True, C, dev) if dense
+                 else launch_shape(any_hit, True, C, dev, ps.arity))
         counts, warp_ns = stats_buffers(shape, C, dev)
+    next_item = counters(dev)
     if C > 0:
         lib = load_library("traverse_items")
         outs = (ptr(t), ptr(prim), ptr(inst), ptr(u), ptr(v), ptr(occ))
@@ -204,9 +209,8 @@ def _launch(dense: bool, ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
                     ptr(ps.tlo), ptr(ps.thi), ptr(ps.tbox), ptr(ps.tcount), *rays, *outs,
                     ptr(counts), ptr(warp_ns), stream_of(dev))
             else:
-                next_item = torch.zeros(1, dtype=torch.int32, device=dev)
                 rc = lib.rfw_items(
-                    int(any_hit), ptr(ps.nodes), ps.nodes.shape[0], ptr(ps.tris),
+                    int(any_hit), ps.arity, ptr(ps.nodes), ps.nodes.shape[0], ptr(ps.tris),
                     ps.tris.shape[0], ptr(ps.insts), ps.n_inst, ptr(ps.roots), *rays, *outs,
                     ptr(next_item), ptr(counts), ptr(warp_ns), stream_of(dev))
         kind = f"{'dense' if dense else 'items'}_{'occluded' if any_hit else 'closest'}"
@@ -215,7 +219,9 @@ def _launch(dense: bool, ps: PreparedScene, item_inst, ray_o, ray_d, t_limit,
         LAUNCHES[kind] += 1
     if not stats:
         return out
-    return out, WalkStats(*counts.unbind(1), warp_ns=warp_ns)
+    if dense:  # K6 walks no node and pushes nothing
+        return out, WalkStats(*counts.unbind(1), warp_ns=warp_ns)
+    return out, kernel_stats(counts, warp_ns, next_item)
 
 
 def items(ps: PreparedScene, item_inst, ray_o, ray_d, t_limit, any_hit: bool,

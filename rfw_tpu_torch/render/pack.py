@@ -18,6 +18,7 @@ shading indices into a packed vertex arena.
 
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,9 +30,19 @@ from rfw_tpu_torch import native
 from rfw_tpu_torch.mathx import Aabb, aabb_transform, inverse_transpose3
 from rfw_tpu_torch.models.mesh3d import Mesh3D
 
-#: supernode collapse depth: 8-wide supernodes (the JAX package's default
-#: `RFW_WIDE_ARITY`; the traversal kernel is written for arity 8)
-WIDE_DEPTH = 3
+
+
+def wide_depth() -> int:
+    """Supernode collapse depth of the pack, read at pack time.
+
+    RFW_WIDE_ARITY in {8, 16, 32} (default 8) sets the supernode width: a
+    wider collapse shortens each ray's chain of dependent node fetches at
+    more box tests a visit. The traversal reads the width from the packed
+    rows (`ops.traverse.prepare_scene`) and gives the same hits at every
+    width (same leaves, same Woop tests)."""
+    a = int(os.environ.get("RFW_WIDE_ARITY", "8"))
+    assert a in (8, 16, 32), f"RFW_WIDE_ARITY={a}"
+    return a.bit_length() - 1
 
 
 class TraceScene(NamedTuple):
@@ -76,7 +87,8 @@ class TraceScene(NamedTuple):
     blas_wide_i: np.ndarray
     blas_wide_root: np.ndarray  # (I,) wide root per instance
 
-    # 8-wide supernode mirrors (the traversal kernel): see build_wide8
+    # wide supernode mirrors (the traversal kernel; 8-wide by default,
+    # RFW_WIDE_ARITY): see build_widen
     tlas8_box: np.ndarray  # (St,48)
     tlas8_code: np.ndarray  # (St,8)
     tlas8_cnt: np.ndarray  # (St,8)
@@ -292,7 +304,7 @@ def pack_trace_scene(
     """
     deformed_positions = deformed_positions or {}
     deformed_attrs = deformed_attrs or {}
-    depth8 = WIDE_DEPTH
+    depth8 = wide_depth()  # supernode width knob (RFW_WIDE_ARITY)
     arity8 = 1 << depth8
 
     # ---- per-mesh: triangles + BLAS ---------------------------------------
@@ -656,8 +668,8 @@ def build_widen(bvh: BvhNodes, tlas: bool, leaf_base_offset: int = 0,
                 depth: int = 3, root: int = 0):
     """Collapse the binary BVH into (1<<depth)-wide super nodes (`depth`
     levels at a time) for the traversal kernel: fewer dependent node
-    visits per ray at more box tests per visit. The renderer uses depth=3
-    (8-wide).
+    visits per ray at more box tests per visit. The renderer uses
+    `wide_depth()` (3, 8-wide, by default).
 
     Returns (box (S,6*arity) f32, code (S,arity) i32, cnt (S,arity) i32):
       child k occupies box[:, 6k:6k+6] = [min3 | max3];

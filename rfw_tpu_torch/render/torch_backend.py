@@ -22,7 +22,9 @@ heavy lifting once per frame —
     TLAS mirrors refit over the last host topology); else
     `repack_instances` (host TLAS rebuild) -> upload of the TLAS and
     instance fields, with the 8-wide TLAS built on the card by
-    `build_tlas8_device` from DEVICE_TLAS_MIN_INSTANCES instances up;
+    `build_tlas8_device` from DEVICE_TLAS_MIN_INSTANCES instances up.
+    A pack wider than 8 (RFW_WIDE_ARITY 16 or 32) keeps the host routes
+    of both: the refit plans and the device TLAS builder are 8-wide;
   * material block / texture atlas / light buffers upload on change, each
     alone.
 `render()` runs `samples_per_frame` progressive samples of
@@ -557,6 +559,9 @@ class TorchBackend:
             # with device dynamics the refit plan refits tlas8 boxes over
             # the HOST topology, which the Morton tree would not match
             and self._dyn is None
+            # the device builder emits 8-wide nodes only; wider packs
+            # (RFW_WIDE_ARITY) keep the host collapse
+            and new_host.tlas8_code.shape[1] == 8
         )
         fields = [f for f in _INSTANCE_FIELDS if not (
             use_device_tlas and f in ("tlas8_box", "tlas8_code", "tlas8_cnt"))]
@@ -590,6 +595,11 @@ class TorchBackend:
         base = self._scene_host
         if (not self.settings.device_motion or self._scene_dev is None
                 or base is None):
+            return False
+        if base.tlas8_code.shape[1] != 8:
+            # the TLAS refit plan schedules 8-wide supernodes only (rfw_tpu's
+            # route rewrites a wider pack's tlas8_box as 8-wide rows, which
+            # its Pallas tier then refuses): wider packs take the host route
             return False
         every = self.settings.motion_rebuild_every
         if every > 0 and self._motion_syncs + 1 >= every:
@@ -933,6 +943,10 @@ class TorchBackend:
         pack."""
         self._dyn = None
         if not self.settings.device_dynamics:
+            return
+        if scene.blas8_code.shape[1] != 8:
+            # the refit-plan builder emits 8-wide schedules only; wider packs
+            # (RFW_WIDE_ARITY) take the host repack route
             return
         plans, dyn_units = [], []
         for u in units:

@@ -98,6 +98,19 @@ PALLAS_LANES = 1024
 #: padded light-table row cap for the per-point potential-weighted pick;
 #: above it the global power CDF picks
 POTENTIAL_MAX = 16
+#: the bounce sort's keys (`sort_key`): direction octant major (the
+#: default), origin Morton code major, origin major with an octant
+#: tiebreak, and the previous hit's instance major
+SORT_KEYS = ("octmorton", "morton", "mortonoct", "instance")
+#: the bounce sort's key, read at import as rfw_tpu reads it; RFW_SORT_INST=1
+#: is the legacy alias for "instance"
+SORT_KEY = os.environ.get(
+    "RFW_SORT_KEY",
+    "instance" if os.environ.get("RFW_SORT_INST", "0") == "1" else "octmorton")
+#: a dead lane's sort key: above every live lane's under every key
+#: ("mortonoct" reaches 2^31 - 1), so the live lanes form the prefix that
+#: compaction traces
+DEAD_KEY = 1 << 31
 
 
 def _block_swizzle(width: int, height: int, lanes: int, device=None):
@@ -665,17 +678,41 @@ def _tmap(fn, *trees):
 
 
 def sort_key(ray_o: Vec3C, ray_d: Vec3C, scene_mn: torch.Tensor, scene_mx: torch.Tensor,
-             alive=None) -> torch.Tensor:
-    """The bounce sort's (R,) int64 key: direction octant * 2^27 + the
-    origin's 30-bit Morton code in the scene box >> 5; 2^30 (last) where
-    `alive` is False. Lanes take the order of a stable sort by it."""
+             alive=None, hint=None, key=None) -> torch.Tensor:
+    """The bounce sort's (R,) int64 key under `key` (default SORT_KEY), as
+    rfw_tpu's `_sort_state` builds it from the direction octant (0..7) and
+    the origin's 30-bit Morton code `cell` in the scene box:
+
+      octmorton   octant * 2^27 + (cell >> 5)
+      morton      cell
+      mortonoct   ((cell >> 8) << 9) | (octant << 6) | ((cell >> 2) & 63)
+      instance    (clip(hint, -1, 254) + 1) * 2^22 + octant * 2^19
+                  + (cell >> 11)
+
+    `hint` is each lane's previous hit instance (-1 for none; None: all
+    -1). DEAD_KEY (last) where `alive` is False: unlike rfw_tpu, whose dead
+    key 2^30 lies below "mortonoct"'s keys for origins in the upper half of
+    the box along x, every key keeps the live lanes first. Lanes take the
+    order of a stable sort by it."""
+    key = SORT_KEY if key is None else key
     octant = (
         (ray_d[0] >= 0).to(torch.int64)
         + 2 * (ray_d[1] >= 0).to(torch.int64)
         + 4 * (ray_d[2] >= 0).to(torch.int64)
     )
-    skey = octant * (1 << 27) + (morton_codes_c(ray_o, scene_mn, scene_mx) >> 5)
-    return skey if alive is None else torch.where(alive, skey, 1 << 30)
+    cell = morton_codes_c(ray_o, scene_mn, scene_mx)
+    if key == "octmorton":
+        skey = octant * (1 << 27) + (cell >> 5)
+    elif key == "morton":
+        skey = cell
+    elif key == "mortonoct":
+        skey = ((cell >> 8) << 9) | (octant << 6) | ((cell >> 2) & 63)
+    elif key == "instance":
+        h = torch.full_like(cell, -1) if hint is None else hint.to(torch.int64)
+        skey = (torch.clamp(h, -1, 254) + 1) * (1 << 22) + octant * (1 << 19) + (cell >> 11)
+    else:
+        raise ValueError(f"sort key {key!r} not in {SORT_KEYS}")
+    return skey if alive is None else torch.where(alive, skey, DEAD_KEY)
 
 
 def _prefix_sizes(R: int, g: int, max_bounces: int = 1) -> list:
@@ -1102,8 +1139,8 @@ def render_sample(
     sizes0 = _prefix_sizes(R, g) if compact_on else [R]
 
     def _sort_state(st: _PathState) -> _PathState:
-        """Re-sort lanes by (direction octant, origin Morton), dead last."""
-        skey = sort_key(st.ray_o, st.ray_d, scene_mn, scene_mx, st.alive)
+        """Re-sort lanes by SORT_KEY's key, dead last."""
+        skey = sort_key(st.ray_o, st.ray_d, scene_mn, scene_mx, st.alive, st.sort_hint)
         perm = torch.sort(skey, stable=True).indices
         return _tmap(lambda a: a[perm], st)
 

@@ -173,13 +173,16 @@ def bounce_rays(o: torch.Tensor, d: torch.Tensor, hit, seed: int = RAY_SEED):
     return pos + d_inc * 1e-3, d_inc
 
 
-def sorted_rays(o: torch.Tensor, d: torch.Tensor, scene):
+def sorted_rays(o: torch.Tensor, d: torch.Tensor, scene, hint=None):
     """Rays in the integrator's bounce order: a stable sort by
-    `wavefront.sort_key` (direction octant, origin Morton code in the
-    scene's TLAS box). Returns (o, d)."""
+    `wavefront.sort_key` under the key it selects (`RFW_SORT_KEY`; the
+    default orders by direction octant, then origin Morton code in the
+    scene's TLAS box). `hint` is each ray's previous hit instance (-1 for
+    none), which the "instance" key reads. Returns (o, d)."""
     from rfw_tpu_torch.render.disney import v3_split
     from rfw_tpu_torch.render.wavefront import sort_key
 
-    key = sort_key(v3_split(o), v3_split(d), scene.tlas_min[0], scene.tlas_max[0])
+    key = sort_key(v3_split(o), v3_split(d), scene.tlas_min[0], scene.tlas_max[0],
+                   hint=hint)
     perm = torch.sort(key, stable=True).indices
     return o[perm].contiguous(), d[perm].contiguous()

@@ -6,8 +6,9 @@ the bench scene for
 
   coherent   primary camera rays in 32 x 32 pixel blocks (the best case)
   sorted     uniform-sphere directions from the first hits, in the
-             integrator's bounce order (`wavefront.sort_key`: direction
-             octant, origin Morton code)
+             integrator's bounce order (`wavefront.sort_key` under
+             `RFW_SORT_KEY`; by default direction octant, origin Morton
+             code)
   unsorted   the same rays in pixel-block order (the worst case)
 
 `--tp-occluded` adds NEE-like finite limits (the distance to a point
@@ -52,8 +53,10 @@ def populations(parts, ps, width: int, height: int) -> dict:
 
     scene, view = parts[0], parts[4]
     o, d, _ = primary_rays(view, width, height)
-    o_inc, d_inc = bounce_rays(o, d, closest_hit(ps, o, d))
-    return {"coherent": (o, d), "sorted": sorted_rays(o_inc, d_inc, scene),
+    hit = closest_hit(ps, o, d)
+    o_inc, d_inc = bounce_rays(o, d, hit)
+    hint = torch.where(hit.prim >= 0, hit.inst, -1)  # the "instance" key's
+    return {"coherent": (o, d), "sorted": sorted_rays(o_inc, d_inc, scene, hint),
             "unsorted": (o_inc, d_inc)}
 
 

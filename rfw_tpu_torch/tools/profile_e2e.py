@@ -12,8 +12,9 @@ to attack. Stages:
   render_sample(1b)  one whole sample (1 bounce, Sobol, clamp 100)
   trace_primary      K1 on the coherent primaries
   trace_occluded     K2 from the first hits toward a fixed direction
-  sort_pair          the bounce sort (key, stable sort, gather of 8
-                     columns) and the unsort by ray id
+  sort_pair          the bounce sort (the key RFW_SORT_KEY selects,
+                     stable sort, gather of 8 columns) and the unsort by
+                     ray id
   shading_basis      `_shading_basis_c` (vertex attribute gathers)
   material+atlas     the basis and `_fetch_material_c`
   light+disney       the basis, the material, `_sample_light_c` and
@@ -94,9 +95,11 @@ def main(argv=None) -> dict:
     lim = torch.ones(R, device=dev)
     ids = torch.arange(R, device=dev, dtype=torch.float32)
 
+    hint = torch.where(hit.prim >= 0, hit.inst, -1)  # the "instance" key's
+
     def sort_pair():
-        perm = torch.sort(sort_key(v3_split(pos), dc, scene.tlas_min[0], scene.tlas_max[0]),
-                          stable=True).indices
+        perm = torch.sort(sort_key(v3_split(pos), dc, scene.tlas_min[0], scene.tlas_max[0],
+                                   hint=hint), stable=True).indices
         cols = torch.cat([pos, d, lim[:, None], ids[:, None]], dim=1)[perm]
         back = torch.sort(cols[:, 7], stable=True).indices
         return cols[back, :6]

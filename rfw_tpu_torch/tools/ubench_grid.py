@@ -108,6 +108,8 @@ def grid(ps: PreparedScene, ray_o, ray_d, t_limit, variant: str) -> Hit:
     plain version for tensors on the CPU."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
+    if ps.arity != 8:  # the kernel's fetch chain reads 8-wide rows
+        raise ValueError(f"U2 reads 8-wide supernodes, not {ps.arity}-wide")
     if ray_o.device.type == "cpu":
         return grid_plain(ps, ray_o, ray_d, t_limit, variant)
     from rfw_tpu_torch.ops._build import load_library
