@@ -217,7 +217,28 @@ Phases (any failed check raises, so the script exits nonzero):
      sample, Mrays/s, peak memory), and TorchBackend(1920, 1080) on a
      16-wide pack with the skinned tube of phase 12 (a): its first HDR
      frame equals render_sample on its own tensors bit for bit, a skin
-     pose sync and a motion sync take the host routes.
+     pose sync and a motion sync take the host routes;
+ 17. the last switches and tools: (a) the flagship's 1080p Sobol sample
+     under RFW_COMPACTION=0 with two_phase "off" and "auto": no host read
+     of a live count (no `_pick_prefix` call and no vertex-0 sort, where
+     the compacted sample makes two and one), its HDR frame against the
+     compacted sample's at phase 4's per-pixel tolerance, K1 and K2
+     against their plain versions on the captured uncompacted vertex-0
+     shadow, bounce and bounce shadow calls (every lane of the frame,
+     dead ones included), ms per sample compacted against uncompacted in
+     turns, the uncompacted "auto" run counted; (b) `python -m
+     rfw_tpu_torch.bench` as subprocesses (3 repeats) under
+     RFW_COMPACTION 1 and 0 with "off" and "auto", and under
+     RFW_DEEP_LADDER 1 and 0 at 3 bounces: ms per sample, Mrays/s, peak
+     memory and launches a sample; (c) rfw_tpu_torch.tools.bench_nee in
+     its default mode and sweeping 4 and 32 point lights (finite
+     variances, each child process with the RFW_POTENTIAL_MAX it was
+     given); (d) profile_shading, ubench_atlas, ubench_gather (alone,
+     with --sweep-size and with --sweep-width) and bench_fused_stages
+     (--case sorted, phase A by the dense scan and by K4) at the
+     reference tools' defaults, every stage reported and positive; (e)
+     profile_dynamics on a skinned glTF written here as its CesiumMan,
+     without pica: its skin sync takes the device route.
 The tests that need a card (tests/test_torch_*.py, `*_on_card`) cannot run
 where the card is (their conftest imports jax); these phases make their
 checks (.claude/skills/verify/SKILL.md maps each test to its phase).
@@ -240,7 +261,10 @@ phase 11's first frame, launches_dynamics in phase 12's first dynamic
 frame (its sync and its render), launches_parallel in phase 13's
 counted film strip, launches_tiers in phase 14's "pallas" frame,
 launches_twophase_call in its public two-phase call and launches_bench in
-phase 15's "auto" bench run (25 samples: the warm-up and 3 x 8). K1-K5
+phase 15's "auto" bench run (25 samples: the warm-up and 3 x 8),
+launches_uncompacted in phase 17 (a)'s counted RFW_COMPACTION=0 "auto"
+run (3 samples); K1's and K2's uncompacted_calls are phase 17 (a)'s
+compared calls, their disagreements counted in max_abs_err. K1-K5
 carry their supernode `arity`; the entries of arity 16 and 32 (phase 16)
 count their launches in that arity's counted sample and sum their times,
 plain times and bounds over phase 16's compared calls at that arity (a
@@ -265,6 +289,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from rfw_tpu_torch.tools import patched
 
 SEED = 7
 W, H = 1920, 1080
@@ -680,19 +706,6 @@ def compare_call(card, label, kind, ps, o, d, tl, reps=10) -> dict:
     return dict(call=label, rays=n, live=live, ms=ms, plain_ms=plain_ms, max_abs_err=err, **row)
 
 
-@contextmanager
-def patched(module, **fns):
-    """Replace module-level names for the duration of the block."""
-    old = {k: getattr(module, k) for k in fns}
-    for k, f in fns.items():
-        setattr(module, k, f)
-    try:
-        yield
-    finally:
-        for k, f in old.items():
-            setattr(module, k, f)
-
-
 def capture_traversal(run):
     """Run `run()` with render_sample's traversal calls recorded. Returns
     [(label, kind, prepared scene, ray_o, ray_d, t_limit)] in call order;
@@ -994,36 +1007,17 @@ def compare_entries(card, label, ps, o, d, tl, K, other_k=()):
 
 
 def twophase_stages(card, label, ps, o, d, tl, cfg):
-    """One two-phase call with its stages bracketed by synchronize():
-    phase A, pack, phase B kernels, merge, fallback; and the fallback's
-    ray count."""
-    from rfw_tpu_torch.ops import traverse_items as ti
+    """One two-phase call with its stages bracketed by synchronize()
+    (rfw_tpu_torch.tools.bench_fused_stages.stages): phase A, pack, phase
+    B kernels, merge, fallback; and the fallback's ray count."""
+    from rfw_tpu_torch.tools.bench_fused_stages import stages
 
-    clock = StageClock()
-    fallback = []
-
-    def count_fallback(ps_, o_, *a):
-        fallback.append(o_.shape[0])
-        return ti_closest(ps_, o_, *a)
-
-    ti_closest = ti.closest_hit
-    stages = dict(_phase_a="phase A", _pack="pack (compaction, instance sort, gather)",
-                  items="phase B: K3 items", dense_items="phase B: K6 dense items",
-                  _merge_closest="merge (scatter-min)")
-    with patched(ti, **{f: clock.wrap(n, getattr(ti, f)) for f, n in stages.items()},
-                 closest_hit=clock.wrap("fallback (K1 retrace)", count_fallback)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ti.twophase_closest_with_fallback(ps, o, d, tl, K=cfg.tp_K,
-                                          items_per_ray=cfg.tp_items_per_ray)
-        torch.cuda.synchronize()
-        total = (time.perf_counter() - t0) * 1e3
-    rest = total - sum(clock.ms.values())
-    _, trunc = ti.twophase_closest_fused(ps, o, d, tl, K=cfg.tp_K,
-                                         items_per_ray=cfg.tp_items_per_ray)
+    call = stages(ps, o, d, tl, cfg.tp_K, cfg.tp_items_per_ray, torch.device("cuda"))
+    total = call["total_ms"]
     log(card, f"two-phase call stages, {label}: {total:.2f} ms in all; truncated rays "
-              f"{int(trunc.sum())}, retraced by the fallback {sum(fallback)}")
-    for name, ms in sorted([*clock.ms.items(), ("other (ray gathers, flags, glue)", rest)],
+              f"{call['truncated']}, retraced by the fallback {call['retraced']}")
+    for name, ms in sorted([*call["stage_ms"].items(),
+                            ("other (ray gathers, flags, glue)", call["other_ms"])],
                            key=lambda kv: -kv[1]):
         log(card, f"  {ms:9.3f} ms  {100 * ms / total:5.1f}%  {name}")
 
@@ -1073,37 +1067,13 @@ def read_launches() -> dict:
     return {k: n for counts in _counters() for k, n in counts.items()}
 
 
-class StageClock:
-    """Exclusive host-clock milliseconds per wrapped function, each call
-    bracketed by torch.cuda.synchronize(); a nested wrapped call counts
-    for itself only."""
-
-    def __init__(self):
-        self.ms = defaultdict(float)
-        self._open = []  # per open call: ms spent in wrapped callees
-
-    def wrap(self, name, fn):
-        def timed_stage(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            self._open.append(0.0)
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            dt = (time.perf_counter() - t0) * 1e3
-            inner = self._open.pop()
-            self.ms[name] += dt - inner
-            if self._open:
-                self._open[-1] += dt
-            return out
-        return timed_stage
-
-
 def stage_breakdown(card, run):
     """One sample with its stages bracketed; prints ms and share per stage."""
     from rfw_tpu_torch.render import disney
     from rfw_tpu_torch.render import wavefront as wf
+    from rfw_tpu_torch.tools.bench_fused_stages import StageClock
 
-    clock = StageClock()
+    clock = StageClock(torch.device("cuda"))
     wf_stages = dict(
         prepare_scene="prepare_scene", sample_slot="sobol uniforms (sample_slot)",
         camera_rays_c="camera rays", closest_hit="trace closest (K1)",
@@ -3501,32 +3471,33 @@ def phase16_sort_keys(card, dev, scene, mats, atlas, lights, view, base, ps) -> 
     return out
 
 
-def phase16_bench(card) -> list:
-    """`python -m rfw_tpu_torch.bench` as a subprocess per WIDE_BENCH_RUNS
-    environment and two_phase mode: each line parsed (a positive value, a
-    finite film); ms per sample, Mrays/s and peak memory logged."""
+def bench_subprocesses(card, tag, argv, runs) -> list:
+    """`python -m rfw_tpu_torch.bench` as a subprocess per (environment,
+    two_phase mode, extra flags) of `runs`, with no other RFW_* variable
+    set: each line parsed (a positive value, a finite film); ms per
+    sample, Mrays/s, peak memory and launches a sample logged."""
     root = Path(__file__).resolve().parent
     torch.cuda.empty_cache()
     lines = []
-    for extra in WIDE_BENCH_RUNS:
-        for mode in ("off", "auto"):
-            e = {k: v for k, v in os.environ.items()
-                 if k not in ("RFW_WIDE_ARITY", "RFW_SORT_KEY", "RFW_SORT_INST")}
-            e.update(extra)
-            t0 = time.perf_counter()
-            res = subprocess.run(
-                [sys.executable, "-m", "rfw_tpu_torch.bench", *map(str, WIDE_BENCH_ARGV),
-                 "--two-phase", mode], cwd=root, env=e, capture_output=True, text=True,
-                timeout=BENCH_TIMEOUT)
-            assert res.returncode == 0, f"bench {extra} {mode}: {res.stderr[-3000:]}"
-            line = json.loads(res.stdout.strip().splitlines()[-1])
-            assert line["value"] > 0 and line["film_finite"] and line["film_mean"] > 0, line
-            name = ", ".join(f"{k}={v}" for k, v in extra.items())
-            log(card, f"phase 16 (c) bench {name}, two_phase={mode}: {line['value']:.3f} "
-                      f"Mrays/s, {line['ms_per_sample']:.2f} ms/sample, peak "
-                      f"{line['peak_mem_mb']} MiB, set-up {line['setup_s']:.3f} s "
-                      f"(process {time.perf_counter() - t0:.1f} s)")
-            lines.append(dict(env=extra, two_phase=mode, line=line))
+    for extra, mode, flags in runs:
+        e = {k: v for k, v in os.environ.items() if not k.startswith("RFW_")}
+        e.update(extra)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "rfw_tpu_torch.bench", *map(str, argv), *map(str, flags),
+             "--two-phase", mode], cwd=root, env=e, capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT)
+        name = " ".join([*(f"{k}={v}" for k, v in extra.items()), *map(str, flags)])
+        assert res.returncode == 0, f"bench {name} {mode}: {res.stderr[-3000:]}"
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        assert line["value"] > 0 and line["film_finite"] and line["film_mean"] > 0, line
+        log(card, f"{tag} bench {name}, two_phase={mode}: {line['value']:.3f} Mrays/s, "
+                  f"{line['ms_per_sample']:.2f} ms/sample (all "
+                  f"{', '.join(f'{x:.2f}' for x in line['ms_per_sample_all'])}), peak "
+                  f"{line['peak_mem_mb']} MiB, set-up {line['setup_s']:.3f} s, launches a "
+                  f"sample {line['launches_per_sample']} (process "
+                  f"{time.perf_counter() - t0:.1f} s)")
+        lines.append(dict(env=extra, flags=list(flags), two_phase=mode, line=line))
     return lines
 
 
@@ -3667,10 +3638,210 @@ def phase16(card, dev, built, main_calls, tp, heavy, parts, camera, tensors, bas
         del flagship, rows
         torch.cuda.empty_cache()
     keys_ms = phase16_sort_keys(card, dev, scene, mats, atlas, lights, view, base, ps)
-    bench = phase16_bench(card)
+    bench = bench_subprocesses(card, "phase 16 (c)", WIDE_BENCH_ARGV,
+                               [(extra, mode, ()) for extra in WIDE_BENCH_RUNS
+                                for mode in ("off", "auto")])
     phase16_backend(card, dev, parts, camera, base)
     log(card, f"phase 16: {time.perf_counter() - t_phase:.2f} s")
     return dict(entries=entries, keys_ms=keys_ms, bench=bench)
+
+
+# ------------------------------------------------------------------ phase 17
+#: the bench's A/B runs of phase 17 (b): RFW_COMPACTION 1 and 0 with
+#: two_phase "off" and "auto", then RFW_DEEP_LADDER 1 and 0 at 3 bounces
+#: (where the ladder has its sub-floor rungs) with "off"
+COMPACTION_BENCH_RUNS = (
+    *((dict(RFW_COMPACTION=c), mode, ()) for c in ("1", "0") for mode in ("off", "auto")),
+    *((dict(RFW_DEEP_LADDER=lad), "off", ("--bounces", 3)) for lad in ("1", "0")))
+#: bench_nee in its default mode, then its sweep at one light count on
+#: each side of POTENTIAL_MAX's default 16
+NEE_ARGV = ((), ("--sweep", "--counts", "4,32"))
+#: the shading and gather tools and the two-phase stages, at the reference
+#: tools' default sizes
+SHADING_TOOL_RUNS = (("profile_shading", ()), ("ubench_atlas", ()), ("ubench_gather", ()),
+                     ("ubench_gather", ("--sweep-size",)),
+                     ("ubench_gather", ("--sweep-width",)),
+                     ("bench_fused_stages", ("--case", "sorted")),
+                     ("bench_fused_stages", ("--case", "sorted", "--pallas-A")))
+PROFILE_DYNAMICS_ARGV = ("--no-pica",)
+
+
+@contextmanager
+def host_reads():
+    """Count render_sample's host reads of a live count: the calls of
+    `_pick_prefix` (the bounce vertex's and vertex 0's prefix lengths) and
+    the vertex-0 compaction sort (a torch.sort called from render_sample
+    itself; the bounce sort runs in `_sort_state`)."""
+    from rfw_tpu_torch.render import wavefront as wf
+
+    reads = Counter()
+    pick, sort = wf._pick_prefix, torch.sort
+
+    def counted_pick(sizes, live):
+        reads["_pick_prefix"] += 1
+        return pick(sizes, live)
+
+    def counted_sort(*a, **k):
+        if sys._getframe(1).f_code.co_name == "render_sample":
+            reads["vertex-0 sort"] += 1
+        return sort(*a, **k)
+
+    with patched(wf, _pick_prefix=counted_pick), patched(torch, sort=counted_sort):
+        yield reads
+
+
+def phase17a(card, dev, scene, mats, atlas, lights, view, base) -> dict:
+    """RFW_COMPACTION=0 on the flagship at 1080p, two_phase "off" then
+    "auto": no host read of a live count (the compacted sample makes two
+    `_pick_prefix` calls and the vertex-0 sort), the Sobol HDR frame equal
+    to the compacted one per pixel within the wavefront tolerance, and,
+    under "off", K1/K2 against their plain versions on the captured
+    uncompacted calls (every lane of the frame, dead ones included; the
+    primaries are phase 5's); then ms per sample compacted against
+    uncompacted in turns, the uncompacted "auto" run counted. Returns the
+    compared rows by kind and that run's launches."""
+    from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
+
+    def sample(c, s):
+        return render_sample(scene, mats, atlas, lights, view, W, H, c, sample_index=s)
+
+    def uncompacted():
+        return env(RFW_COMPACTION="0")
+
+    rows = defaultdict(list)
+    cfgs = {}
+    for mode in ("off", "auto"):
+        cfg = cfgs[mode] = RenderConfig(**{**base, "two_phase": mode})
+        with host_reads() as on:
+            ref = sample(cfg, 7).radiance
+        with uncompacted(), host_reads() as off:
+            got = sample(cfg, 7).radiance
+        torch.cuda.synchronize()
+        log(card, f"phase 17 (a) two_phase={mode}: host reads of a live count a sample, "
+                  f"compacted {dict(on)}, RFW_COMPACTION=0 {dict(off)}")
+        assert on["_pick_prefix"] == 1 + BOUNCES and on["vertex-0 sort"] == 1, dict(on)
+        assert not off, f"RFW_COMPACTION=0 read a live count: {dict(off)}"
+        err = (got - ref).abs()
+        px_ok = (err <= 1e-3 + 1e-3 * ref.abs()).all(dim=1).float().mean().item()
+        m_got, m_ref = got.mean().item(), ref.mean().item()
+        log(card, f"phase 17 (a) two_phase={mode}: RFW_COMPACTION=0 against the compacted "
+                  f"sample: {px_ok:.6f} of pixels within 1e-3 abs + 1e-3 rel, pixels equal "
+                  f"{(got == ref).all(dim=1).float().mean().item():.6f}, max abs err "
+                  f"{err.max().item():.3e}, mean {m_got:.6f} vs {m_ref:.6f}")
+        assert bool(torch.isfinite(got).all()), "non-finite radiance (RFW_COMPACTION=0)"
+        assert px_ok >= 0.99 and abs(m_got - m_ref) <= 1e-3 * m_ref, (px_ok, m_got, m_ref)
+        if mode == "off":
+            with uncompacted():
+                calls = capture_traversal(lambda: sample(cfg, 8))
+            labels = [(label, o.shape[0]) for label, _, _, o, _, _ in calls]
+            assert [n for _, n in labels] == [W * H] * 4, labels
+            for label, kind, ps, o, d, tl in calls[1:]:  # the primaries are phase 5's
+                rows[kind].append(compare_call(card, f"uncompacted {label}", kind, ps, o, d,
+                                               tl))
+            bounce = calls[2][5]
+            log(card, f"phase 17 (a): the uncompacted bounce call traced {bounce.shape[0]} "
+                      f"lanes, {int((bounce > 0).sum())} live")
+            assert int((bounce <= 0).sum()) > 0, "the uncompacted bounce call has no dead lane"
+            del calls
+    launches, _, _ = ab_samples(card, dev, "flagship scene, compaction on and off", [
+        ("compacted, off", cfgs["off"], env), ("RFW_COMPACTION=0, off", cfgs["off"], uncompacted),
+        ("compacted, auto", cfgs["auto"], env),
+        ("RFW_COMPACTION=0, auto", cfgs["auto"], uncompacted)],
+        sample, counted="RFW_COMPACTION=0, auto")
+    for k in BENCH_LAUNCHES["auto"]:
+        assert launches[k] > 0, f"the uncompacted two-phase path never launched {k}"
+    return dict(rows=rows, launches=launches)
+
+
+def phase17b(card) -> list:
+    """The bench as subprocesses under RFW_COMPACTION 1 and 0 ("off",
+    "auto") and RFW_DEEP_LADDER 1 and 0 (3 bounces, "off"): each run
+    launches the kinds its path needs, and no other."""
+    lines = bench_subprocesses(card, "phase 17 (b)", BENCH_ARGV, COMPACTION_BENCH_RUNS)
+    for run in lines:
+        got = set(run["line"]["launches_per_sample"])
+        assert got == set(BENCH_LAUNCHES[run["two_phase"]]), (run["env"], run["flags"], got)
+    return lines
+
+
+def phase17c(card) -> list:
+    """bench_nee in its default mode and sweeping 4 and 32 point lights:
+    finite variances, each child with the POTENTIAL_MAX it was given."""
+    from rfw_tpu_torch.tools import bench_nee
+
+    out = []
+    for argv in NEE_ARGV:
+        t0 = time.perf_counter()
+        res = run_tool(card, bench_nee.main, list(argv))
+        pairs = ([(x, pm) for row in res["sweep"] for x, pm in ((row["potential"], 4096),
+                                                                 (row["power"], 0))]
+                 if "sweep" in res else [(res["potential"], 16), (res["power"], 0)])
+        for child, pm in pairs:
+            assert child["potential_max"] == pm, (child, pm)
+            assert all(math.isfinite(child[k]) and child[k] > 0
+                       for k in ("var_mean", "var_median", "lum_mean", "sec_frame")), child
+        log(card, f"phase 17 (c) bench_nee {' '.join(map(str, argv))}: "
+                  f"{time.perf_counter() - t0:.2f} s")
+        out.append(res)
+    return out
+
+
+def phase17d(card) -> None:
+    """The shading, atlas and gather tools and the two-phase stages at the
+    reference tools' defaults: every stage reported, and positive."""
+    import importlib
+
+    from rfw_tpu_torch.tools import profile_shading, ubench_atlas, ubench_gather
+
+    for name, flags in SHADING_TOOL_RUNS:
+        tool = importlib.import_module(f"rfw_tpu_torch.tools.{name}")
+        t0 = time.perf_counter()
+        res = run_tool(card, tool.main, list(flags))
+        log(card, f"phase 17 (d) {name} {' '.join(map(str, flags))}: "
+                  f"{time.perf_counter() - t0:.2f} s")
+        keys = {"profile_shading": profile_shading.STAGES, "ubench_atlas": ubench_atlas.STAGES,
+                "ubench_gather": ([f"{c[0]}_{loc}" for c in ubench_gather.sweep_cases()
+                                   for loc in ("rand", "sorted")]
+                                  if "--sweep-size" in flags else
+                                  [f"f32x{c}_{form}" for c in ubench_gather.WIDTHS
+                                   for form in ubench_gather.FORMS]
+                                  if "--sweep-width" in flags else ubench_gather.GATHERS),
+                "bench_fused_stages": ("A.k4" if "--pallas-A" in flags else "A.dense",
+                                       "B.pack", "C.items", "D.merge")}[name]
+        assert all(res[k] > 0 for k in keys), (name, flags, res)
+        if name == "bench_fused_stages":
+            assert 0 < res["occupied_slots"] <= res["slots"], res
+
+
+def phase17e(card) -> None:
+    """profile_dynamics with skinned_gltf() as its CesiumMan, without
+    pica: its dirty skin sync takes the device route."""
+    import tempfile
+
+    from rfw_tpu_torch.tools import profile_dynamics
+
+    with tempfile.TemporaryDirectory() as root:
+        man = Path(root) / "CesiumMan"
+        man.mkdir()
+        (man / "CesiumMan.gltf").write_text(json.dumps(skinned_gltf()))
+        res = run_tool(card, profile_dynamics.main, [*PROFILE_DYNAMICS_ARGV, "--assets", root])
+    assert res["mode"] == "device", f"profile_dynamics' skin sync took the {res['mode']} route"
+
+
+def phase17(card, dev, scene, mats, atlas, lights, view, base) -> dict:
+    """The port's last switches and tools on the card: (a) RFW_COMPACTION=0
+    in-process, (b) the bench A/B of RFW_COMPACTION and RFW_DEEP_LADDER,
+    (c) bench_nee, (d) the shading tools and the two-phase stages, (e)
+    profile_dynamics. Returns (a)'s compared rows and launches."""
+    t_phase = time.perf_counter()
+    out = phase17a(card, dev, scene, mats, atlas, lights, view, base)
+    log(card, f"phase 17 (a): {time.perf_counter() - t_phase:.2f} s")
+    phase17b(card)
+    phase17c(card)
+    phase17d(card)
+    phase17e(card)
+    log(card, f"phase 17: {time.perf_counter() - t_phase:.2f} s")
+    return out
 
 
 def sass_against(card, other: Path) -> None:
@@ -3860,6 +4031,10 @@ def main() -> int:
                    (scene, mats, lights, atlas), base, ps)
     del calls
 
+    # ---- 17. RFW_COMPACTION, RFW_DEEP_LADDER, RFW_POTENTIAL_MAX and the
+    # last tools
+    p17 = phase17(card, dev, scene, mats, atlas, lights, view_full, base)
+
     row = kernel_row
 
     def fallback(kind):
@@ -3867,10 +4042,11 @@ def main() -> int:
 
     def walk_row(name, kind, cmp_err):
         rows = main_rows[kind]
+        late = p17["rows"][kind]  # phase 17 (a)'s uncompacted calls
         return row(name, "rfw_tpu_torch/csrc/traverse.cu", "rfw_tpu/ops/traverse.py:335",
                    launches[kind], rows,
-                   [cmp_err, *(r["max_abs_err"] for r in fallback(kind))],
-                   fallback_calls=fallback(kind), arity=8)
+                   [cmp_err, *(r["max_abs_err"] for r in [*fallback(kind), *late])],
+                   fallback_calls=fallback(kind), uncompacted_calls=late, arity=8)
 
     items_src = "rfw_tpu_torch/csrc/traverse_items.cu"
     kernels = [
@@ -3909,6 +4085,7 @@ def main() -> int:
         k["launches_tiers"] = sum(closing["tiers"][kind] for kind in kinds)
         k["launches_twophase_call"] = sum(closing["twophase_call"][kind] for kind in kinds)
         k["launches_bench"] = sum(bench_launches.get(kind, 0) for kind in kinds)
+        k["launches_uncompacted"] = sum(p17["launches"].get(kind, 0) for kind in kinds)
     kernels += wide["entries"]
     print(json.dumps({"kernels": kernels}))
     print(card)

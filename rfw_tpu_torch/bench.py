@@ -9,8 +9,11 @@ prints one JSON line with `bench.py`'s four keys (`metric`, `value`,
 `unit`, `vs_baseline`) and the port's own: `ms_per_sample` (the median
 over the repeats; with more than two, `ms_per_sample_quartiles`),
 `ms_per_sample_all`, `repeats`, `spp`, `scene`, `two_phase`, `device`,
-`card` (name and power limit), `peak_mem_mb`, `setup_s` and, of the
-last loop's film, `film_mean` (mean radiance) and `film_finite`.
+`card` (name and power limit), `peak_mem_mb`, `setup_s`,
+`launches_per_sample` (each kernel's launches over the timed loops a
+sample, by launch kind; none on the CPU, where the plain versions run)
+and, of the last loop's film, `film_mean` (mean radiance) and
+`film_finite`.
 
 The scene: with `--gltf PATH`, the glTF packed as `bench.py:34-101`
 packs pica (node walk, two spots and a sun from the TLAS bounds, the
@@ -149,6 +152,15 @@ def sample_loop(parts, width: int, height: int, cfg, spp: int):
     return film, time.perf_counter() - t0
 
 
+def launch_counts() -> dict:
+    """The kernels' launch counters, by launch kind (ops.traverse,
+    ops.traverse_items, ops.traverse_entries)."""
+    from rfw_tpu_torch.ops import traverse, traverse_entries, traverse_items
+
+    return {k: n for m in (traverse, traverse_items, traverse_entries)
+            for k, n in m.LAUNCHES.items()}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--width", type=int, default=1920)
@@ -187,9 +199,12 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     ms = []
+    before = launch_counts()
     for _ in range(args.repeats):
         film, dt = sample_loop(parts, W, H, cfg, args.spp)
         ms.append(dt / args.spp * 1e3)
+    launches = {k: (n - before[k]) / (args.spp * args.repeats)
+                for k, n in launch_counts().items() if n > before[k]}
     peak = torch.cuda.max_memory_allocated(dev) / 2**20 if dev.type == "cuda" else None
     film_mean = float(film.mean()) / args.spp
 
@@ -217,6 +232,7 @@ def main(argv=None) -> dict:
         "card": card_line(dev),
         "peak_mem_mb": peak,
         "setup_s": setup_s,
+        "launches_per_sample": launches,
         "film_mean": film_mean,
         "film_finite": bool(torch.isfinite(film).all()),
     }

@@ -96,8 +96,9 @@ TRAVERSALS = ("auto", "lockstep", "packet", "pallas", "pallas_hbm")
 PALLAS_LANES = 1024
 
 #: padded light-table row cap for the per-point potential-weighted pick;
-#: above it the global power CDF picks
-POTENTIAL_MAX = 16
+#: above it the global power CDF picks. Read at import as rfw_tpu reads it
+#: (RFW_POTENTIAL_MAX=0: the power CDF always)
+POTENTIAL_MAX = int(os.environ.get("RFW_POTENTIAL_MAX", "16"))
 #: the bounce sort's keys (`sort_key`): direction octant major (the
 #: default), origin Morton code major, origin major with an octant
 #: tiebreak, and the previous hit's instance major
@@ -185,7 +186,8 @@ class RenderConfig:
     #   NEE<->BSDF MIS machinery is skipped)
     compaction: str = "auto"  # "auto" | "off": bounce vertices run on the
     #   live prefix at the smallest of a few lengths >= the live count
-    #   (with the bounce sort, outside the lockstep tier)
+    #   (with the bounce sort, outside the lockstep tier); RFW_COMPACTION=0
+    #   turns it off as "off" does
     tp_K: int = 6  # two-phase: instance entries kept per ray
     tp_items_per_ray: float = 1.25  # two-phase: item buffer slots per ray
     #   (items beyond it are dropped and their rays retraced)
@@ -718,11 +720,12 @@ def sort_key(ray_o: Vec3C, ray_d: Vec3C, scene_mn: torch.Tensor, scene_mx: torch
 def _prefix_sizes(R: int, g: int, max_bounces: int = 1) -> list:
     """Live-prefix lengths for bounce-vertex compaction: multiples of the
     tile width g, ascending, last == R. Deep-bounce configs (>= 3) add two
-    sub-floor rungs. Small ray counts get a single full-length entry."""
+    sub-floor rungs unless RFW_DEEP_LADDER=0 (read at each call). Small
+    ray counts get a single full-length entry."""
     if R < 4 * g or R < 16384:
         return [R]
     fracs = (0.1875, 0.375, 0.5625, 1.0)
-    if max_bounces >= 3:
+    if max_bounces >= 3 and os.environ.get("RFW_DEEP_LADDER", "1") == "1":
         fracs = (0.046875, 0.09375) + fracs
     out = []
     for f in fracs:
@@ -1133,7 +1136,10 @@ def render_sample(
     # traced by the lockstep tier where no tile width divides R still sorts)
     do_sort = (config.sort_secondary and config.traversal != "lockstep"
                and config.max_bounces >= 1)
-    compact_on = do_sort and config.compaction == "auto"
+    # RFW_COMPACTION=0 (read at each call) traces every lane at every
+    # vertex: no host read of a live count
+    compact_on = (do_sort and config.compaction == "auto"
+                  and os.environ.get("RFW_COMPACTION", "1") == "1")
     g = max(tile_lanes, 1)
     sizes = _prefix_sizes(R, g, config.max_bounces) if compact_on else [R]
     sizes0 = _prefix_sizes(R, g) if compact_on else [R]

@@ -25,7 +25,27 @@ split `bench.py`'s time by layer; each builds its scene with
   * `check_traverse`: K1/K2 against a brute-force oracle (exits nonzero on
     a mismatch);
   * `diag_live`: live-lane shares after each bounce, and the material and
-    atlas fetch split.
+    atlas fetch split;
+  * `profile_shading`: ms per application of each shading ingredient
+    alone (the tri_shade and texel gathers, the basis, the light pick,
+    Disney eval, pdf and sample, a Sobol draw, the tangent frame);
+  * `ubench_atlas`: the texel gather at the real vertex-0 indices,
+    shuffled and sorted, the metadata gathers, a whole bilinear fetch, the
+    unpack math and the sort a texel order would need;
+  * `ubench_gather`: the integrator's row gathers and `searchsorted` at
+    the reference's table shapes, and (`--sweep-size`) a row gather's ns
+    against table size, f32 or bf16 rows, random or sorted indices;
+  * `bench_nee`: the per-pixel variance and seconds a frame of the
+    potential-weighted light pick against the power CDF
+    (`RFW_POTENTIAL_MAX`, in a child process per mode), on the bench
+    lights or (`--sweep`) per count of grid point lights;
+  * `profile_dynamics`: the animated demo's frame taken apart: the lights
+    upload field by field against two blobs, a dirty skin sync with its
+    execution and its route, a quiescent and a dirty-skin frame;
+  * `bench_fused_stages`: the stages of the two-phase closest-hit call
+    (phase A by the dense scan or K4, pack, K3/K6, merge, K1 fallback),
+    each alone on one captured call, and the call with every stage
+    bracketed.
 
 All run on the card unless `--device cpu` is given, and then they run the
 plain versions and time them on the host clock. This module holds their
@@ -37,6 +57,7 @@ from __future__ import annotations
 import math
 import subprocess
 import time
+from contextlib import contextmanager
 from typing import Callable, List
 
 import torch
@@ -62,6 +83,19 @@ def device_of(name: str) -> torch.device:
         raise RuntimeError("no CUDA device: run on the card, or pass --device cpu "
                            "for the plain torch version")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+@contextmanager
+def patched(module, **fns):
+    """Replace module-level names for the duration of the block."""
+    old = {k: getattr(module, k) for k in fns}
+    for k, f in fns.items():
+        setattr(module, k, f)
+    try:
+        yield
+    finally:
+        for k, f in old.items():
+            setattr(module, k, f)
 
 
 def device_name(dev: torch.device) -> str:

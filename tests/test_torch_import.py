@@ -83,7 +83,10 @@ MODULES = [
     "rfw_tpu_torch.ops", "rfw_tpu_torch.bench", "rfw_tpu_torch.tools.bisect_e2e",
     "rfw_tpu_torch.tools.profile_e2e", "rfw_tpu_torch.tools.bench_traverse",
     "rfw_tpu_torch.tools.bench_items", "rfw_tpu_torch.tools.check_traverse",
-    "rfw_tpu_torch.tools.diag_live",
+    "rfw_tpu_torch.tools.diag_live", "rfw_tpu_torch.tools.bench_nee",
+    "rfw_tpu_torch.tools.profile_shading", "rfw_tpu_torch.tools.ubench_atlas",
+    "rfw_tpu_torch.tools.ubench_gather", "rfw_tpu_torch.tools.profile_dynamics",
+    "rfw_tpu_torch.tools.bench_fused_stages",
 ]
 
 
