@@ -239,6 +239,19 @@ Phases (any failed check raises, so the script exits nonzero):
      reference tools' defaults, every stage reported and positive; (e)
      profile_dynamics on a skinned glTF written here as its CesiumMan,
      without pica: its skin sync takes the device route.
+ 18. textures without Pillow (`import PIL` blocked for the phase, whether
+     or not the machine has it): (a) the fixtures of tests/golden/textures
+     (PNG: RGBA, palette with tRNS, 16-bit grey; JPEG: baseline 4:2:0,
+     4:2:2, 4:4:4, greyscale, progressive, restart markers, a 1024x1024
+     gradient) decoded by rfw_tpu_torch.utils.image, each equal to the
+     array Pillow decoded when it was made; (b) a glTF embedding the 37x53
+     4:2:0 JPEG as baseColor and a 24x20 PNG as metallic-roughness, loaded
+     through Scene into TorchBackend(640, 360): both textures' 64x64 mip 0,
+     on the host and read back from the card's atlas, equal the committed
+     arrays of Pillow's bilinear resize; its first frame launches K1, K2
+     and K3 and is finite and non-zero; (c) the host's decode ms per
+     megapixel of a 2048x2048 PNG written by utils/png.py and of the
+     1024x1024 JPEG.
 The tests that need a card (tests/test_torch_*.py, `*_on_card`) cannot run
 where the card is (their conftest imports jax); these phases make their
 checks (.claude/skills/verify/SKILL.md maps each test to its phase).
@@ -263,7 +276,7 @@ counted film strip, launches_tiers in phase 14's "pallas" frame,
 launches_twophase_call in its public two-phase call and launches_bench in
 phase 15's "auto" bench run (25 samples: the warm-up and 3 x 8),
 launches_uncompacted in phase 17 (a)'s counted RFW_COMPACTION=0 "auto"
-run (3 samples); K1's and K2's uncompacted_calls are phase 17 (a)'s
+run (3 samples), launches_textures in phase 18's textured glTF frame; K1's and K2's uncompacted_calls are phase 17 (a)'s
 compared calls, their disagreements counted in max_abs_err. K1-K5
 carry their supernode `arity`; the entries of arity 16 and 32 (phase 16)
 count their launches in that arity's counted sample and sum their times,
@@ -3844,6 +3857,202 @@ def phase17(card, dev, scene, mats, atlas, lights, view, base) -> dict:
     return out
 
 
+# ---- phase 18: textures without Pillow
+TEXTURES = Path(__file__).resolve().parent / "tests" / "golden" / "textures"
+#: the fixtures the phase's glTF embeds: a non-power-of-two baseline 4:2:0
+#: JPEG as baseColor, a PNG as metallic-roughness
+TEX_BASE, TEX_MR = "base420_37x53.jpg", "mr_24x20.png"
+TEX_W, TEX_H = 640, 360
+BIG_PNG = 2048  # side of the PNG the phase writes with utils/png.py and times
+TIMED_JPEG = "gradient_1024.jpg"
+
+
+def textured_gltf(base: bytes, mr: bytes) -> dict:
+    """A 4 x 4 quad (uv 0-1, 2 triangles) instanced by two nodes, a floor
+    and a wall standing at its back edge, its material textured by `base`
+    (baseColorTexture) and `mr` (metallicRoughnessTexture), both embedded
+    as data URIs."""
+    import base64
+
+    f32 = np.float32
+    parts = [("VEC3", 5126, np.array([[-2, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2]], f32)),
+             ("VEC3", 5126, np.tile(np.array([0, 1, 0], f32), (4, 1))),
+             ("VEC2", 5126, np.array([[0, 0], [1, 0], [1, 1], [0, 1]], f32)),
+             ("SCALAR", 5123, np.array([0, 2, 1, 0, 3, 2], np.uint16))]
+    buf, views, accessors = b"", [], []
+    for type_, ctype, arr in parts:
+        raw = arr.tobytes()
+        views.append({"buffer": 0, "byteOffset": len(buf), "byteLength": len(raw)})
+        accessors.append({"bufferView": len(views) - 1, "componentType": ctype,
+                          "count": len(arr), "type": type_})
+        buf += raw + b"\0" * (-len(raw) % 4)
+
+    def uri(mime, raw):
+        return f"data:{mime};base64," + base64.b64encode(raw).decode()
+
+    s = float(np.sin(np.pi / 4))
+    return {
+        "asset": {"version": "2.0"},
+        "buffers": [{"uri": uri("application/octet-stream", buf), "byteLength": len(buf)}],
+        "bufferViews": views, "accessors": accessors,
+        "images": [{"uri": uri("image/jpeg", base)}, {"uri": uri("image/png", mr)}],
+        "textures": [{"source": 0}, {"source": 1}],
+        "materials": [{"name": "textured", "pbrMetallicRoughness": {
+            "baseColorTexture": {"index": 0}, "metallicRoughnessTexture": {"index": 1},
+            "metallicFactor": 0.3, "roughnessFactor": 0.8}}],
+        "meshes": [{"name": "quad", "primitives": [{
+            "attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2}, "indices": 3,
+            "material": 0}]}],
+        "nodes": [{"name": "floor", "mesh": 0},
+                  {"name": "wall", "mesh": 0, "translation": [0, 2, -2],
+                   "rotation": [s, 0, 0, s]}],
+        "scenes": [{"nodes": [0, 1]}], "scene": 0,
+    }
+
+
+def atlas_texels(atlas, tex_id: int) -> np.ndarray:
+    """Mip 0 of texture `tex_id` as (H, W, 4) uint8, read back from the
+    atlas's packed texel rows (each row's first column is its own texel)."""
+    off, w, h = (int(a[tex_id, 0]) for a in (atlas.offset, atlas.width, atlas.height))
+    packed = atlas.texels[off:off + w * h, 0].cpu().numpy().astype(np.uint32)
+    return (packed[:, None] >> np.array([0, 8, 16, 24], np.uint32) & 0xFF).astype(
+        np.uint8).reshape(h, w, 4)
+
+
+def decode_ms_per_mp(card, label, data: bytes, pixels: int, reps: int = 3):
+    """Decode `data` `reps` times on the host clock: (the array, the fastest
+    run's ms per megapixel)."""
+    from rfw_tpu_torch.utils.image import decode_image
+
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = decode_image(data, label)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    per_mp = min(runs) / (pixels / 1e6)
+    log(card, f"host decode of {label} ({len(data)} B, {pixels / 1e6:.3f} MP): "
+              f"{', '.join(f'{r:.2f}' for r in runs)} ms, {per_mp:.2f} ms per megapixel "
+              f"(fastest of {reps})")
+    return out, per_mp
+
+
+@contextmanager
+def without_pillow():
+    """Make `import PIL` raise ImportError inside the block, whether or not
+    Pillow is installed, and restore sys.modules after it."""
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k == "PIL" or k.startswith("PIL.")}
+    sys.modules["PIL"] = None
+    try:
+        yield
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved)
+
+
+def phase18(card, dev) -> dict:
+    """Phase 18's checks (`textures_on_card`) with `import PIL` blocked:
+    the port must not need Pillow, whether or not the machine has it."""
+    import importlib.util
+
+    log(card, f"phase 18: Pillow installed here: {importlib.util.find_spec('PIL') is not None}; "
+              f"its import is blocked for the phase")
+    with without_pillow():
+        return textures_on_card(card, dev)
+
+
+def textures_on_card(card, dev) -> dict:
+    """Textures without Pillow on the card's machine: (a) the committed
+    fixtures of tests/golden/textures decoded by utils/image.py and held to
+    the arrays Pillow decoded when they were made (bit for bit: every .npy,
+    and the 1024x1024 JPEG's SHA-256); (b) a glTF embedding TEX_BASE as
+    baseColor and TEX_MR as metallic-roughness loaded through Scene into
+    TorchBackend: both textures' mip 0, on the host and in the card's atlas,
+    equal the committed 64x64 arrays Pillow's bilinear resize made; one
+    frame, launch counters reset just before it and read just after, must
+    launch K1, K2 and K3 and be finite and non-zero; (c) host decode ms per
+    megapixel of a 2048x2048 PNG written here by utils/png.py and of the
+    committed 1024x1024 JPEG. Returns (b)'s launches."""
+    import hashlib
+    import tempfile
+
+    from rfw_tpu_torch.render.torch_backend import TorchBackend, TorchSettings
+    from rfw_tpu_torch.scene import Camera3D, Scene
+    from rfw_tpu_torch.utils.image import read_image
+    from rfw_tpu_torch.utils.png import encode_png
+
+    t_phase = time.perf_counter()
+    # ---- (a) the fixtures
+    manifest = json.loads((TEXTURES / "manifest.json").read_text())
+    for name, meta in sorted(manifest.items()):
+        got = read_image(TEXTURES / name)
+        digest = hashlib.sha256(got.tobytes()).hexdigest()
+        ref = TEXTURES / f"{name}.npy"
+        same = np.array_equal(got, np.load(ref)) if ref.exists() else None
+        log(card, f"fixture {name}: {got.shape[1]}x{got.shape[0]}, equal to Pillow's decode: "
+                  f"{'array ' + str(same) if same is not None else 'not stored'}, "
+                  f"SHA-256 equal {digest == meta['sha256']}")
+        assert list(got.shape) == meta["shape"] and digest == meta["sha256"], name
+        assert same in (True, None), name
+
+    # ---- (b) the textured glTF through Scene and TorchBackend
+    scene = Scene()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d, "textured.gltf")
+        path.write_text(json.dumps(textured_gltf((TEXTURES / TEX_BASE).read_bytes(),
+                                                 (TEXTURES / TEX_MR).read_bytes())))
+        scene.add_3d(scene.load(str(path)))
+    scene.add_directional_light((0.3, -1.0, -0.5), (2.0, 1.9, 1.8))
+    mat = next(m for _, m in scene.materials.materials if m.name == "textured")
+    slots = {TEX_BASE: mat.diffuse_tex, TEX_MR: mat.metallic_roughness_tex}
+    settings = TorchSettings(samples_per_frame=1, max_bounces=BOUNCES, clamp=20.0,
+                             sky_intensity=0.35, sampler="sobol")
+    be = TorchBackend(TEX_W, TEX_H, settings)
+    assert be.device.type == "cuda", be.device
+    scene.synchronize(be)
+    cam = Camera3D(fov=50).look_at(np.array([0.0, 2.2, 6.0], np.float32),
+                                   np.array([0.0, 1.0, -1.0], np.float32))
+    view = cam.get_view(TEX_W, TEX_H)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    frame = be.render(None, view)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    for name, slot in slots.items():
+        want = np.load(TEXTURES / f"{name}.pow2.npy")
+        host = scene.materials.textures[slot].mips[0]
+        card_texels = atlas_texels(be._atlas_dev, slot)
+        log(card, f"glTF texture {name} (slot {slot}, srgb "
+                  f"{scene.materials.textures[slot].srgb}): mip 0 {host.shape[1]}x"
+                  f"{host.shape[0]}, host equal to Pillow's resize {np.array_equal(host, want)}, "
+                  f"card atlas equal {np.array_equal(card_texels, want)}")
+        assert np.array_equal(host, want) and np.array_equal(card_texels, want), name
+    hdr = be.hdr_frame()
+    log(card, f"textured glTF frame {TEX_W}x{TEX_H} (first render, with the first upload): "
+              f"{frame_ms:.2f} ms, launches {launches}, mean radiance {hdr.mean():.6f}, "
+              f"mean 8-bit value {frame[..., :3].mean():.3f}")
+    assert np.isfinite(hdr).all() and hdr.mean() > 0 and frame[..., :3].max() > 0
+    for k in ("closest", "occluded", "items_closest"):
+        assert launches[k] > 0, f"the textured glTF's frame never launched {k}"
+
+    # ---- (c) host decode time per megapixel
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.mgrid[0:BIG_PNG, 0:BIG_PNG]
+    big = np.stack([xx // 8, yy // 8, (xx + yy) // 16, 255 - xx // 8], -1) % 256
+    big = (big + rng.integers(0, 4, big.shape)).astype(np.uint8)
+    png = encode_png(big)
+    got, png_ms = decode_ms_per_mp(card, f"{BIG_PNG}x{BIG_PNG} RGBA PNG (utils/png.py, "
+                                         f"filter 0)", png, BIG_PNG * BIG_PNG)
+    assert np.array_equal(got, big), "the PNG decode differs from the encoded array"
+    jpeg = (TEXTURES / TIMED_JPEG).read_bytes()
+    got, jpeg_ms = decode_ms_per_mp(card, f"{TIMED_JPEG} (baseline 4:2:0)", jpeg, 1024 * 1024)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == manifest[TIMED_JPEG]["sha256"]
+    log(card, f"phase 18: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def sass_against(card, other: Path) -> None:
     """The walk kernels' SASS against another tree's (`python3 chip_smoke.py
     --sass-against DIR`, DIR e.g. the parent commit unpacked by `git
@@ -4035,6 +4244,9 @@ def main() -> int:
     # last tools
     p17 = phase17(card, dev, scene, mats, atlas, lights, view_full, base)
 
+    # ---- 18. textures decoded without Pillow, a textured glTF on the card
+    tex_launches = phase18(card, dev)
+
     row = kernel_row
 
     def fallback(kind):
@@ -4086,6 +4298,7 @@ def main() -> int:
         k["launches_twophase_call"] = sum(closing["twophase_call"][kind] for kind in kinds)
         k["launches_bench"] = sum(bench_launches.get(kind, 0) for kind in kinds)
         k["launches_uncompacted"] = sum(p17["launches"].get(kind, 0) for kind in kinds)
+        k["launches_textures"] = sum(tex_launches.get(kind, 0) for kind in kinds)
     kernels += wide["entries"]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -26,6 +26,10 @@ its imports and `TorchBackend` in place of `TpuBackend`:
       physics, log, timing)                     lights, snapshots, the OBJ
                                                 and glTF loaders, meshes,
                                                 the sphere physics world
+  utils/image.py, utils/png.py                PNG and JPEG texture decoding
+                                                and Pillow's resize, bit
+                                                for bit without Pillow;
+                                                the PNG frame writer
   render/cpu_reference.py                     CpuReferenceBackend: the numpy
                                                 pixel oracle with the same
                                                 14-method contract (CPU

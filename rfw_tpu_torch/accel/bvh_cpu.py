@@ -31,6 +31,8 @@ from rfw_tpu_torch import native
 
 N_BINS = 16
 MAX_LEAF = 8
+TRAVERSAL_COST = 1.0
+INTERSECT_COST = 1.0
 #: BLAS leaf capacity for the render path ("treelet" leaves): every leaf's
 #: triangles start at a TREELET-aligned slot of the triangle arena
 #: (render/pack.py), and ops/traverse.py stores a precomputed
@@ -51,6 +53,15 @@ class BvhNodes:
     @property
     def num_nodes(self) -> int:
         return self.node_min.shape[0]
+
+    def sah_cost(self) -> float:
+        """Total SAH cost (for build-quality comparisons)."""
+        ext = np.maximum(self.node_max - self.node_min, 0)
+        area = 2 * (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0])
+        root = max(float(area[0]), 1e-12)
+        is_leaf = self.node_count > 0
+        c = np.where(is_leaf, INTERSECT_COST * self.node_count, TRAVERSAL_COST)
+        return float(np.sum(c * area / root))
 
 
 def _surface_areas(mn: np.ndarray, mx: np.ndarray) -> np.ndarray:

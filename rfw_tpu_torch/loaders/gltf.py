@@ -34,6 +34,7 @@ from rfw_tpu_torch.scene.descriptor import (
 )
 from rfw_tpu_torch.scene.materials import Material, Materials, Texture
 from rfw_tpu_torch.utils import log
+from rfw_tpu_torch.utils.image import decode_image
 
 _LOG = log.get("loaders.gltf")
 
@@ -128,10 +129,6 @@ class _Gltf:
 
     def image_array(self, i: int) -> np.ndarray:
         """Decode embedded (data-uri or bufferView) image."""
-        import io
-
-        from PIL import Image
-
         img = self.json["images"][i]
         uri = img.get("uri")
         if uri and uri.startswith("data:"):
@@ -143,8 +140,7 @@ class _Gltf:
             raw = buf[o : o + bv["byteLength"]]
         else:
             raise ValueError("image has neither uri nor bufferView")
-        with Image.open(io.BytesIO(raw)) as im:
-            return np.asarray(im.convert("RGBA"))
+        return decode_image(raw, f"glTF image {i}")
 
 
 def _srgb_texture_set(g: _Gltf) -> set:
@@ -165,8 +161,9 @@ def _load_textures(g: _Gltf, materials: Materials) -> List[int]:
     """texture index -> Materials texture id, srgb classified per use.
 
     Decode runs on a TaskPool (reference rfw-utils task.rs asset-IO pool):
-    PIL file reads + mip generation release the GIL, so texture decodes
-    overlap; pushes into the Materials store stay ordered on this thread."""
+    file reads, zlib and numpy release the GIL for part of each decode (the
+    JPEG entropy decoder is Python and holds it), so texture decodes
+    overlap in part; pushes into the Materials store stay ordered on this thread."""
     from rfw_tpu_torch.utils.task import TaskPool
 
     srgb_set = _srgb_texture_set(g)

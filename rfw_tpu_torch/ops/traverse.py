@@ -622,3 +622,33 @@ def occluded(ps: PreparedScene, ray_o, ray_d, t_limit, stats: bool = False):
             return plain_stats(occluded_plain, ps, ray_o, ray_d, t_limit)
         return occluded_plain(ps, ray_o, ray_d, t_limit)
     return _launch(ps, ray_o, ray_d, t_limit, any_hit=True, stats=stats)
+
+
+# ------------------------------------------------- rfw_tpu's names for these
+PallasScene = PreparedScene
+prepare_pallas_scene = prepare_scene
+
+
+def pallas_closest_hit(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
+                       interpret: bool = False, stats: bool = False,
+                       tri_hbm: bool = False):
+    """`closest_hit` with `rfw_tpu`'s keywords: `interpret=True` runs the
+    plain version on any device (the counterpart of Pallas interpret mode);
+    `tri_hbm` changes nothing, since the kernel reads the triangle arena
+    from global memory either way. Unlike `rfw_tpu`'s, `stats=True`
+    returns (Hit, WalkStats), the port's per-ray counts, and leaves u as
+    the barycentric u (`rfw_tpu` puts iteration counts in it)."""
+    if interpret:
+        if stats:
+            return plain_stats(closest_hit_plain, ps, ray_o, ray_d, t_limit)
+        return closest_hit_plain(ps, ray_o, ray_d, t_limit)
+    return closest_hit(ps, ray_o, ray_d, t_limit, stats=stats)
+
+
+def pallas_occluded(ps: PreparedScene, ray_o, ray_d, t_limit,
+                    interpret: bool = False, tri_hbm: bool = False) -> torch.Tensor:
+    """`occluded` with `rfw_tpu`'s keywords (see `pallas_closest_hit`):
+    (R,) bool."""
+    if interpret:
+        return occluded_plain(ps, ray_o, ray_d, t_limit).to(torch.bool)
+    return occluded(ps, ray_o, ray_d, t_limit).to(torch.bool)

@@ -191,3 +191,13 @@ def tlas_entries(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
             return plain_stats(tlas_entries_plain, ps, ray_o, ray_d, t_limit, K)
         return tlas_entries_plain(ps, ray_o, ray_d, t_limit, K)
     return _launch(ps, ray_o, ray_d, t_limit, K, stats)
+
+
+def pallas_tlas_entries(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
+                        K: int = 8, interpret: bool = False) -> TlasEntries:
+    """`tlas_entries` with `rfw_tpu`'s keywords: `interpret=True` runs the
+    plain version on any device (the counterpart of Pallas interpret
+    mode)."""
+    if interpret:
+        return tlas_entries_plain(ps, ray_o, ray_d, t_limit, K)
+    return tlas_entries(ps, ray_o, ray_d, t_limit, K)

@@ -449,3 +449,14 @@ def to_local(t, bt, n, v) -> torch.Tensor:
 
 def to_world(t, bt, n, v) -> torch.Tensor:
     return v3_stack(to_world_c(v3_split(t), v3_split(bt), v3_split(n), v3_split(v)))
+
+
+def _sample_cosine(u1, u2) -> torch.Tensor:
+    """(R,3) wrapper over _sample_cosine_c."""
+    return v3_stack(_sample_cosine_c(u1, u2))
+
+
+def _refract(wo, h, eta_rel):
+    """(R,3) wrapper over _refract_c: (wi, tir)."""
+    wi, tir = _refract_c(v3_split(wo), v3_split(h), eta_rel)
+    return v3_stack(wi), tir

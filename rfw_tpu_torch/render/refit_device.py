@@ -697,3 +697,14 @@ def instance_motion_update(
     ibmax = torch.where(live[:, None], wmax, -inf)
     scene = scene._replace(inst_matrix=mats, inst_inv=inv, inst_normal=nrm)
     return _refit_tlas(scene, tlas_plan, ibmin, ibmax)
+
+
+def apply_dynamic_jit():
+    """`apply_dynamic` itself: `rfw_tpu` returns its jit-compiled form
+    here; these eager torch updates need none."""
+    return apply_dynamic
+
+
+def instance_motion_jit():
+    """`instance_motion_update` itself (see `apply_dynamic_jit`)."""
+    return instance_motion_update

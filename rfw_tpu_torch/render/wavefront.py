@@ -78,7 +78,7 @@ from rfw_tpu_torch.render import disney
 from rfw_tpu_torch.render.atlas import TextureAtlas, sample_bilinear
 from rfw_tpu_torch.render.disney import (
     Vec3C, _luminance_c, v3_add, v3_cross, v3_dot, v3_mul, v3_neg,
-    v3_normalize, v3_scale, v3_stack, v3_sub, v3_where,
+    v3_normalize, v3_scale, v3_split, v3_stack, v3_sub, v3_where,
 )
 from rfw_tpu_torch.render.intersect import Hit, T_MAX, bvh_closest_hit, bvh_occluded
 from rfw_tpu_torch.render.packet import (
@@ -181,7 +181,9 @@ class RenderConfig:
     two_phase: str = "auto"  # "auto" | "on" | "off": in the kernel tier,
     #   bounce rays' closest hits go through the two-phase path
     #   (instance entries, per-instance BLAS walks, classic retrace of
-    #   truncated rays); "off" traces every ray with the classic kernel
+    #   truncated rays); "off" traces every ray with the classic kernel.
+    #   RFW_TWO_PHASE, read at each call, overrides it where set: "1" on,
+    #   anything else off (rfw_tpu's meaning)
     has_area_lights: bool = True  # the scene has area lights (else the
     #   NEE<->BSDF MIS machinery is skipped)
     compaction: str = "auto"  # "auto" | "off": bounce vertices run on the
@@ -439,6 +441,16 @@ def _sample_light_c(
     return wi, dist, rad_over_pdf, is_delta, pdf_sa, pick_norm
 
 
+def _sample_light(lights: DeviceLights, p: torch.Tensor, u: torch.Tensor,
+                  ns: Optional[torch.Tensor] = None):
+    """(R,3) wrapper over _sample_light_c: (wi, dist, radiance_over_pdf,
+    is_delta, pdf_area_solidangle, pick_norm), 3-vectors as (R,3)."""
+    wi, dist, rop, is_delta, pdf_sa, pick_norm = _sample_light_c(
+        lights, v3_split(p), u[:, 0], u[:, 1], u[:, 2],
+        None if ns is None else v3_split(ns))
+    return v3_stack(wi), dist, v3_stack(rop), is_delta, pdf_sa, pick_norm
+
+
 # ---------------------------------------------------------------- materials
 def tex_kinds_mask(tex_table) -> int:
     """RenderConfig.tex_mask for a materials tex table (N,6): which map
@@ -580,6 +592,19 @@ def _fetch_material_c(
     return p, emission, n_ts, emission_base, absorption
 
 
+def _fetch_material(mats, atlas: TextureAtlas, mat_id, uv_interp, lod, entering,
+                    tex_mask: int = 15, trilinear: bool = False):
+    """(R,3) wrapper over _fetch_material_c: uv as (R,2) or a (u, v) pair;
+    base_color, emission, the normal map, untextured emission and
+    absorption as (R,3)."""
+    uv_c = uv_interp if isinstance(uv_interp, tuple) else (uv_interp[:, 0], uv_interp[:, 1])
+    p, emission, n_ts, emission_base, absorption = _fetch_material_c(
+        mats, atlas, mat_id, uv_c, lod, entering, tex_mask, trilinear)
+    p = p._replace(base_color=v3_stack(p.base_color))
+    return (p, v3_stack(emission), v3_stack(n_ts), v3_stack(emission_base),
+            v3_stack(absorption))
+
+
 # -------------------------------------------------------------- integrator
 def _mat3_apply(m: torch.Tensor, base: int, v: Vec3C) -> Vec3C:
     """Row-major 3x3 from columns [base:base+9] of an (R,K) fetch, applied
@@ -648,6 +673,16 @@ def _shading_basis_c(scene, hit: Hit, ray_d: Vec3C,
     return dict(ns=ns, ng=ng, uv=uv, tan=tan, bitan=bitan,
                 world_area=0.5 * area2, entering=~flip, lodf=lodf,
                 centroid_w=centroid_w, mat_id=mat_id, light_id=light_id)
+
+
+def _shading_basis(scene, hit: Hit, ray_d: torch.Tensor) -> dict:
+    """(R,3) wrapper over _shading_basis_c: ns, ng, tan, bitan and
+    centroid_w as (R,3), uv as (R,2)."""
+    b = dict(_shading_basis_c(scene, hit, v3_split(ray_d)))
+    for k in ("ns", "ng", "tan", "bitan", "centroid_w"):
+        b[k] = v3_stack(b[k])
+    b["uv"] = torch.stack(b["uv"], dim=-1)
+    return b
 
 
 class _PathState(NamedTuple):
@@ -785,7 +820,8 @@ def _tracers(scene, config: RenderConfig, tier: Tier):
     """(closest, occluded, bounce closest, bounce occluded) trace functions
     of (ray_o, ray_d, t_limit) for a tier. Where the tier allows it, the
     kernels trace bounce rays' closest hits through the two-phase path when
-    `two_phase` is "auto" or "on", and their shadow rays too with
+    `two_phase` is "auto" or "on" (RFW_TWO_PHASE, where set, decides
+    instead: "1" on, anything else off), and their shadow rays too with
     RFW_TP_SHADOW=1."""
     lanes = tier.lanes
     if tier.trace == "lockstep":
@@ -815,7 +851,10 @@ def _tracers(scene, config: RenderConfig, tier: Tier):
         return occluded(ps, o, d, tl)
 
     bounce, occl_bounce = closest, occl
-    if tier.two_phase and config.two_phase in ("auto", "on"):
+    use_tp = config.two_phase in ("auto", "on")
+    if os.environ.get("RFW_TWO_PHASE") is not None:
+        use_tp = os.environ["RFW_TWO_PHASE"] == "1"
+    if tier.two_phase and use_tp:
         def bounce(o, d, tl):
             return twophase_closest_with_fallback(
                 ps, o, d, tl, K=config.tp_K, items_per_ray=config.tp_items_per_ray)

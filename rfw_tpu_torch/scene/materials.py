@@ -14,7 +14,10 @@ as uint8 RGBA arrays; the backend flattens them into a device atlas.
 
 Host copy of `rfw_tpu/scene/materials.py`: the same numpy code with its imports
 rewritten to `rfw_tpu_torch`, so that it computes what the original
-computes, bit for bit.
+computes, bit for bit. Where the original calls Pillow (decoding a texture
+file, resizing to powers of two, matching metallic-roughness sizes), this
+copy calls `rfw_tpu_torch.utils.image`, which computes Pillow's arrays
+without it.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from rfw_tpu_torch.backend.structs import (
 )
 from rfw_tpu_torch.utils.collections import TrackedStorage
 from rfw_tpu_torch.utils import log
+from rfw_tpu_torch.utils.image import read_image, resize_rgba
 
 _LOG = log.get("materials")
 
@@ -46,10 +50,8 @@ MIN_TEXTURE_SIZE = 64  # reference enforces >=64px on push (list.rs:517-527)
 
 # ------------------------------------------------------------------ textures
 def _to_pow2(img: np.ndarray) -> np.ndarray:
-    """Round dimensions up to powers of two (>= MIN_TEXTURE_SIZE) with PIL
-    resampling so mip chains divide evenly."""
-    from PIL import Image
-
+    """Round dimensions up to powers of two (>= MIN_TEXTURE_SIZE) with
+    Pillow's bilinear resampling so mip chains divide evenly."""
     h, w = img.shape[:2]
 
     def pow2(x: int) -> int:
@@ -61,8 +63,7 @@ def _to_pow2(img: np.ndarray) -> np.ndarray:
     nh, nw = pow2(h), pow2(w)
     if (nh, nw) == (h, w):
         return img
-    pim = Image.fromarray(img).resize((nw, nh), Image.BILINEAR)
-    return np.asarray(pim)
+    return resize_rgba(img, (nw, nh), "bilinear")
 
 
 def generate_mips(base: np.ndarray) -> List[np.ndarray]:
@@ -106,11 +107,8 @@ class Texture:
 
     @staticmethod
     def load(path: str, srgb: bool = True) -> "Texture":
-        from PIL import Image
-
-        with Image.open(path) as im:
-            rgba = np.asarray(im.convert("RGBA"))
-        return Texture.from_array(rgba, path=path, srgb=srgb)
+        """Decode a PNG or JPEG file (chosen by its magic number)."""
+        return Texture.from_array(read_image(path), path=path, srgb=srgb)
 
     @staticmethod
     def solid(rgba: Sequence[float], size: int = MIN_TEXTURE_SIZE) -> "Texture":
@@ -134,10 +132,8 @@ class Texture:
         if other is None:
             return self
         a, b = self.mips[0], other.mips[0]
-        if a.shape != b.shape:
-            from PIL import Image
-
-            b = np.asarray(Image.fromarray(b).resize((a.shape[1], a.shape[0])))
+        if a.shape != b.shape:  # Pillow's default resize filter
+            b = resize_rgba(b, (a.shape[1], a.shape[0]), "bicubic")
         out = a.copy()
         out[..., 2] = b[..., 2]
         return Texture.from_array(out, srgb=False)

@@ -5,18 +5,24 @@ rfw_tpu_torch (and chip_smoke.py and the examples' counterparts,
 examples/torch_*.py) must import with `import jax` failing, and none may
 import rfw_tpu, whose host modules reach jax through their package
 __init__ files, nor the repository's bench.py (the reference's benchmark;
-the port's is rfw_tpu_torch.bench). Pillow may be absent there too: every module imports with
-PIL blocked (texture decoding and the font rasterizer import it inside the
-function that needs it; frames are encoded by utils/png.py).
+the port's is rfw_tpu_torch.bench). Pillow is absent there too: every module imports with
+PIL blocked, and textures load without it (utils/image.py decodes PNG and
+JPEG and resizes as Pillow does; frames are encoded by utils/png.py). Only
+the font rasterizer, font/plugin.py, still imports PIL, inside the function
+that draws a glyph.
 """
 
 import ast
+import json
 import os
 import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+
+import _torch_scene
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "rfw_tpu_torch"
@@ -50,9 +56,9 @@ print("imported", len(names))
 #: modules that must be among those imported with jax blocked (the
 #: backend layer and the host copies it needs, the scene and app layer,
 #: the loaders, the font plugin and the numpy oracle, the device
-#: dynamics and the threefry sampler, the scale-out layer and the PNG
-#: writer, the native host runtime, the packet and lockstep tiers and
-#: the device LBVH, beside the renderer's)
+#: dynamics and the threefry sampler, the scale-out layer, the PNG
+#: writer and the image decoder, the native host runtime, the packet and
+#: lockstep tiers and the device LBVH, beside the renderer's)
 MODULES = [
     "rfw_tpu_torch.backend.contract", "rfw_tpu_torch.backend.structs",
     "rfw_tpu_torch.backend.lights", "rfw_tpu_torch.models.mesh2d",
@@ -78,6 +84,7 @@ MODULES = [
     "rfw_tpu_torch.accel.tlas_device", "rfw_tpu_torch.accel.lbvh",
     "rfw_tpu_torch.parallel", "rfw_tpu_torch.parallel.mesh",
     "rfw_tpu_torch.parallel.distributed", "rfw_tpu_torch.utils.png",
+    "rfw_tpu_torch.utils.image",
     "rfw_tpu_torch.native", "rfw_tpu_torch.render.packet",
     "rfw_tpu_torch.render.intersect", "rfw_tpu_torch.render.twophase",
     "rfw_tpu_torch.ops", "rfw_tpu_torch.bench", "rfw_tpu_torch.tools.bisect_e2e",
@@ -119,6 +126,12 @@ def test_no_jax_or_rfw_tpu_import(path):
     assert not roots & {"jax", "jaxlib", "rfw_tpu", "bench"}, roots
 
 
+def test_only_the_font_plugin_imports_pil():
+    users = {str(p.relative_to(REPO)) for p in SOURCES
+             if "PIL" in {m.split(".")[0] for m in _imported_modules(p)}}
+    assert users == {"rfw_tpu_torch/font/plugin.py"}, users
+
+
 def test_importing_builds_nothing():
     """The CUDA and the native builds happen at first use only: importing
     the modules loads no kernel library and no native library."""
@@ -131,3 +144,46 @@ def test_importing_builds_nothing():
     out = subprocess.run([sys.executable, "-c", script], env=dict(os.environ, PYTHONPATH=str(REPO)),
                          cwd=str(REPO), capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
+
+
+_LOAD_WITHOUT_PIL = r"""
+import importlib.abc, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "rfw_tpu", "PIL"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, _Block())
+import numpy as np
+from rfw_tpu_torch.scene.scene import Scene
+scene = Scene()
+scene.load(sys.argv[1])
+np.savez(sys.argv[2], *[m for _, t in scene.materials.textures for m in t.mips])
+assert not any(m.split(".")[0] in ("jax", "rfw_tpu", "PIL") for m in sys.modules)
+"""
+
+
+def test_textured_gltf_loads_without_pil(tmp_path):
+    """The textured glTF of _torch_scene.gltf_doc (two embedded PNGs, 16x16
+    and 8x8, so both go through the power-of-two resize) loads through the
+    port's Scene in a process where PIL, jax and rfw_tpu cannot be
+    imported, and its textures' mips equal those rfw_tpu's Scene (Pillow)
+    gives here."""
+    from rfw_tpu.scene.scene import Scene
+
+    path = tmp_path / "textured.gltf"
+    path.write_text(json.dumps(_torch_scene.gltf_doc(images=True)))
+    out = subprocess.run([sys.executable, "-c", _LOAD_WITHOUT_PIL, str(path),
+                          str(tmp_path / "mips.npz")],
+                         env=dict(os.environ, PYTHONPATH=str(REPO)), cwd=str(REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    ref = Scene()
+    ref.load(str(path))
+    mips = [m for _, t in ref.materials.textures for m in t.mips]
+    with np.load(tmp_path / "mips.npz") as got:
+        assert len(got.files) == len(mips) > 2 * 7  # default + two 64x64 chains
+        for i, m in enumerate(mips):
+            assert np.array_equal(got[f"arr_{i}"], m), i
