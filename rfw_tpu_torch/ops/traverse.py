@@ -37,6 +37,7 @@ from rfw_tpu_torch.accel.bvh_cpu import TREELET
 from rfw_tpu_torch.render.intersect import Hit, T_MAX, T_MIN
 from rfw_tpu_torch.render.intersect import limit_of as _t_limit
 from rfw_tpu_torch.render.intersect import safe_inv as _safe_inv
+from rfw_tpu_torch.utils import trace
 
 #: supernode widths the walks take (the pack's RFW_WIDE_ARITY)
 ARITIES = (8, 16, 32)
@@ -606,22 +607,24 @@ def plain_stats(plain, *args):
 def closest_hit(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX, stats: bool = False):
     """Closest hit of (R,3) rays: the CUDA kernel for tensors on the card,
     the plain version for tensors on the CPU. With `stats`, (Hit, WalkStats)."""
-    if ray_o.device.type == "cpu":
-        if stats:
-            return plain_stats(closest_hit_plain, ps, ray_o, ray_d, t_limit)
-        return closest_hit_plain(ps, ray_o, ray_d, t_limit)
-    return _launch(ps, ray_o, ray_d, t_limit, any_hit=False, stats=stats)
+    with trace.span("rfw.trace.closest"):
+        if ray_o.device.type == "cpu":
+            if stats:
+                return plain_stats(closest_hit_plain, ps, ray_o, ray_d, t_limit)
+            return closest_hit_plain(ps, ray_o, ray_d, t_limit)
+        return _launch(ps, ray_o, ray_d, t_limit, any_hit=False, stats=stats)
 
 
 def occluded(ps: PreparedScene, ray_o, ray_d, t_limit, stats: bool = False):
     """Occlusion of (R,3) rays within (T_MIN, t_limit): the CUDA kernel for
     tensors on the card, the plain version for tensors on the CPU. With
     `stats`, (flags, WalkStats)."""
-    if ray_o.device.type == "cpu":
-        if stats:
-            return plain_stats(occluded_plain, ps, ray_o, ray_d, t_limit)
-        return occluded_plain(ps, ray_o, ray_d, t_limit)
-    return _launch(ps, ray_o, ray_d, t_limit, any_hit=True, stats=stats)
+    with trace.span("rfw.trace.occluded"):
+        if ray_o.device.type == "cpu":
+            if stats:
+                return plain_stats(occluded_plain, ps, ray_o, ray_d, t_limit)
+            return occluded_plain(ps, ray_o, ray_d, t_limit)
+        return _launch(ps, ray_o, ray_d, t_limit, any_hit=True, stats=stats)
 
 
 # ------------------------------------------------- rfw_tpu's names for these

@@ -30,6 +30,7 @@ from rfw_tpu_torch.ops.traverse import (
 )
 from rfw_tpu_torch.render.intersect import T_MAX, T_MIN
 from rfw_tpu_torch.render.twophase import TlasEntries
+from rfw_tpu_torch.utils import trace
 
 #: the kernel keeps the list in registers, one instantiation per K
 MAX_K = 8
@@ -186,11 +187,12 @@ def tlas_entries(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
     a nearer-hit instance; phase B flags such rays for a retrace. With
     `stats`, (TlasEntries, WalkStats): per ray the node visits and box
     tests, and on the card each launched warp's span."""
-    if ray_o.device.type == "cpu":
-        if stats:
-            return plain_stats(tlas_entries_plain, ps, ray_o, ray_d, t_limit, K)
-        return tlas_entries_plain(ps, ray_o, ray_d, t_limit, K)
-    return _launch(ps, ray_o, ray_d, t_limit, K, stats)
+    with trace.span("rfw.trace.phase_a"):
+        if ray_o.device.type == "cpu":
+            if stats:
+                return plain_stats(tlas_entries_plain, ps, ray_o, ray_d, t_limit, K)
+            return tlas_entries_plain(ps, ray_o, ray_d, t_limit, K)
+        return _launch(ps, ray_o, ray_d, t_limit, K, stats)
 
 
 def pallas_tlas_entries(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,

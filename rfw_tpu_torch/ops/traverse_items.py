@@ -55,6 +55,7 @@ from rfw_tpu_torch.ops.traverse import (
 from rfw_tpu_torch.ops.traverse_entries import tlas_entries
 from rfw_tpu_torch.render.intersect import Hit, T_MAX
 from rfw_tpu_torch.render.twophase import dense_tlas_entries
+from rfw_tpu_torch.utils import trace
 
 #: instance-arena rows up to which phase A is the dense (R, I) scan; above
 #: it, the TLAS walk kernel
@@ -274,7 +275,8 @@ def compact_entries(ents_inst, compact_cap: int):
     item_idx = torch.arange(R * K, dtype=torch.int32, device=dev)
     citem = torch.full((compact_cap + 1,), -1, dtype=torch.int32, device=dev)
     keep = dest.reshape(-1) < compact_cap
-    citem[dest.reshape(-1)[keep]] = item_idx[keep]
+    with trace.span("rfw.wait.compact"):  # boolean-mask indexing reads the count
+        citem[dest.reshape(-1)[keep]] = item_idx[keep]
     return citem[:compact_cap], ray_overflow
 
 
@@ -292,7 +294,8 @@ def pack_compact(citem, inst_flat, n_inst: int):
 
 def _phase_a(ps: PreparedScene, ray_o, ray_d, tl_ray, K: int):
     if ps.inst_min.shape[0] <= DENSE_A_MAX_INST:
-        return dense_tlas_entries(ps.inst_min, ps.inst_max, ray_o, ray_d, tl_ray, K=K)
+        with trace.span("rfw.trace.phase_a"):
+            return dense_tlas_entries(ps.inst_min, ps.inst_max, ray_o, ray_d, tl_ray, K=K)
     return tlas_entries(ps, ray_o, ray_d, tl_ray, K=K)
 
 
@@ -329,11 +332,12 @@ def _pack(ps: PreparedScene, ray_o, ray_d, tl_ray, K: int, cap: int, ents=None):
     slots)."""
     if ents is None:
         ents = _phase_a(ps, ray_o, ray_d, tl_ray, K)
-    citem, ray_ovf = compact_entries(ents.inst, cap)
-    slot_item, slot_inst = pack_compact(citem, ents.inst.reshape(-1), ps.n_inst)
-    ray_id = (torch.clamp(slot_item, min=0) // K).long()
-    od = torch.cat([ray_o, ray_d, tl_ray[:, None]], dim=1)[ray_id]  # one gather
-    tl_s = torch.where(slot_item >= 0, od[:, 6], float("-inf")).contiguous()
+    with trace.span("rfw.trace.phase_b"):
+        citem, ray_ovf = compact_entries(ents.inst, cap)
+        slot_item, slot_inst = pack_compact(citem, ents.inst.reshape(-1), ps.n_inst)
+        ray_id = (torch.clamp(slot_item, min=0) // K).long()
+        od = torch.cat([ray_o, ray_d, tl_ray[:, None]], dim=1)[ray_id]  # one gather
+        tl_s = torch.where(slot_item >= 0, od[:, 6], float("-inf")).contiguous()
     return (ents, ray_ovf, slot_item, slot_inst, od[:, 0:3].contiguous(),
             od[:, 3:6].contiguous(), tl_s)
 
@@ -378,10 +382,11 @@ def twophase_closest_fused(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,
     tl_ray = _t_limit(t_limit, R, dev)
     ents, ray_ovf, slot_item, slot_inst, o_s, d_s, tl_s = _pack(
         ps, ray_o, ray_d, tl_ray, K, math.ceil(R * items_per_ray))
-    hs = _phase_b(ps, slot_inst, o_s, d_s, tl_s, False, _dense_on(dense))
-    hit = _merge_closest(slot_item, hs, tl_ray, K)
-    full = ents.inst[:, K - 1] >= 0
-    truncated = (full & (hit.t > ents.t_entry[:, K - 1])) | ray_ovf
+    with trace.span("rfw.trace.phase_b"):
+        hs = _phase_b(ps, slot_inst, o_s, d_s, tl_s, False, _dense_on(dense))
+        hit = _merge_closest(slot_item, hs, tl_ray, K)
+        full = ents.inst[:, K - 1] >= 0
+        truncated = (full & (hit.t > ents.t_entry[:, K - 1])) | ray_ovf
     return hit, truncated
 
 
@@ -391,8 +396,14 @@ def fallback_capacity(R: int) -> int:
 
 
 def _fallback_rows(mask):
-    """Indices of the first fallback_capacity(R) set rows."""
-    return mask.nonzero().squeeze(1)[:fallback_capacity(mask.shape[0])]
+    """Indices of the first fallback_capacity(R) set rows. Counts the set
+    rows (`tp.truncated`) and those kept (`tp.retraced`) while tracing."""
+    with trace.span("rfw.wait.fallback_rows"):
+        rows = mask.nonzero().squeeze(1)
+    kept = rows[:fallback_capacity(mask.shape[0])]
+    trace.count("tp.truncated", rows.shape[0])
+    trace.count("tp.retraced", kept.shape[0])
+    return kept
 
 
 def twophase_closest_with_fallback(ps: PreparedScene, ray_o, ray_d,
@@ -407,19 +418,20 @@ def twophase_closest_with_fallback(ps: PreparedScene, ray_o, ray_d,
     nearest among their K nearest instances."""
     hit, trunc = twophase_closest_fused(ps, ray_o, ray_d, t_limit, K=K,
                                         items_per_ray=items_per_ray, dense=dense)
-    idx = _fallback_rows(trunc)
-    if idx.numel() == 0:
-        return hit
-    tl_f = hit.t[idx] * (1.0 + 1e-4) + 1e-5
-    fhit = closest_hit(ps, ray_o[idx].contiguous(), ray_d[idx].contiguous(), tl_f)
-    improved = fhit.prim >= 0
+    with trace.span("rfw.trace.fallback"):
+        idx = _fallback_rows(trunc)
+        if idx.numel() == 0:
+            return hit
+        tl_f = hit.t[idx] * (1.0 + 1e-4) + 1e-5
+        fhit = closest_hit(ps, ray_o[idx].contiguous(), ray_d[idx].contiguous(), tl_f)
+        improved = fhit.prim >= 0
 
-    def put(base, val):
-        out = base.clone()
-        out[idx] = torch.where(improved, val, base[idx])
-        return out
+        def put(base, val):
+            out = base.clone()
+            out[idx] = torch.where(improved, val, base[idx])
+            return out
 
-    return Hit(*[put(b, f) for b, f in zip(hit, fhit)])
+        return Hit(*[put(b, f) for b, f in zip(hit, fhit)])
 
 
 def twophase_occluded_fused(ps: PreparedScene, ray_o, ray_d, t_limit,
@@ -434,12 +446,13 @@ def twophase_occluded_fused(ps: PreparedScene, ray_o, ray_d, t_limit,
     tl_ray = _t_limit(t_limit, R, dev)
     ents, ray_ovf, slot_item, slot_inst, o_s, d_s, tl_s = _pack(
         ps, ray_o, ray_d, tl_ray, K, math.ceil(R * items_per_ray))
-    occ_s = _phase_b(ps, slot_inst, o_s, d_s, tl_s, True, _dense_on(dense))
-    hit_ok = (slot_item >= 0) & occ_s
-    rid = torch.where(hit_ok, slot_item // K, R).long()
-    occ = torch.zeros(R + 1, dtype=torch.int32, device=dev).scatter_reduce(
-        0, rid, hit_ok.to(torch.int32), "amax")[:R] > 0
-    full = ents.inst[:, K - 1] >= 0
+    with trace.span("rfw.trace.phase_b"):
+        occ_s = _phase_b(ps, slot_inst, o_s, d_s, tl_s, True, _dense_on(dense))
+        hit_ok = (slot_item >= 0) & occ_s
+        rid = torch.where(hit_ok, slot_item // K, R).long()
+        occ = torch.zeros(R + 1, dtype=torch.int32, device=dev).scatter_reduce(
+            0, rid, hit_ok.to(torch.int32), "amax")[:R] > 0
+        full = ents.inst[:, K - 1] >= 0
     return occ, (full | ray_ovf) & ~occ
 
 
@@ -454,13 +467,14 @@ def twophase_occluded_with_fallback(ps: PreparedScene, ray_o, ray_d, t_limit,
     occ, undecided = twophase_occluded_fused(ps, ray_o, ray_d, tl_ray, K=K,
                                              items_per_ray=items_per_ray,
                                              dense=dense)
-    idx = _fallback_rows(undecided)
-    if idx.numel() == 0:
-        return occ
-    focc = occluded(ps, ray_o[idx].contiguous(), ray_d[idx].contiguous(), tl_ray[idx])
-    out = occ.clone()
-    out[idx] = occ[idx] | focc
-    return out
+    with trace.span("rfw.trace.fallback"):
+        idx = _fallback_rows(undecided)
+        if idx.numel() == 0:
+            return occ
+        focc = occluded(ps, ray_o[idx].contiguous(), ray_d[idx].contiguous(), tl_ray[idx])
+        out = occ.clone()
+        out[idx] = occ[idx] | focc
+        return out
 
 
 def pallas_twophase_closest_hit(ps: PreparedScene, ray_o, ray_d, t_limit=T_MAX,

@@ -84,7 +84,7 @@ from rfw_tpu_torch.render.pack import TraceScene, pack_trace_scene, repack_insta
 from rfw_tpu_torch.render.wavefront import (
     RenderConfig, mat_feature_mask, render_sample, tex_kinds_mask,
 )
-from rfw_tpu_torch.utils import Averager, log
+from rfw_tpu_torch.utils import Averager, log, trace
 
 _LOG = log.get("torch_backend")
 
@@ -469,7 +469,19 @@ class TorchBackend:
             self._skin_dirty.add(i)
 
     def synchronize(self) -> None:
-        t0 = time.perf_counter()
+        with trace.span("rfw.sync"):
+            t0 = time.perf_counter()
+            self._sync_scene()
+            with trace.span("rfw.sync.upload"):
+                self._sync_uploads()
+            if self.device.type == "cuda":  # the clock stops after the uploads
+                with trace.span("rfw.sync.wait"):
+                    torch.cuda.synchronize(self.device)
+            self.stats["sync_ms"].add((time.perf_counter() - t0) * 1e3)
+
+    def _sync_scene(self) -> None:
+        """The geometry and instance part of a sync: the device dynamics
+        route, a full rebuild or an instance-only sync."""
         # skinned meshes force a geometry refresh when their skin updated
         skinned_dirty = any(
             m.has_skin for m in self._meshes.values()
@@ -495,13 +507,15 @@ class TorchBackend:
                 # poses on the host: refit only if the plans are current
                 self._sync_instances()
             if self._dyn is not None and self._dyn is dyn_before:
-                self._apply_device_dynamics()
+                with trace.span("rfw.sync.dynamics"):
+                    self._apply_device_dynamics()
             self._inst_dirty = False
             self._skin_dirty.clear()
             self._morph_dirty.clear()
             self._reset_film()
         elif self._geo_dirty or skinned_dirty or morph_dirty:
-            self._rebuild_scene()
+            with trace.span("rfw.sync.rebuild"):
+                self._rebuild_scene()
             self._geo_dirty = False
             self._inst_dirty = False
             self._skin_dirty.clear()
@@ -511,6 +525,10 @@ class TorchBackend:
             self._sync_instances()
             self._inst_dirty = False
             self._reset_film()
+
+    def _sync_uploads(self) -> None:
+        """Upload the material block, the texture atlas and the light
+        buffers, each only when it changed."""
         if self._mat_dirty and self._materials is not None:
             self._mats_dev = materials_to_device(self._materials, self.device)
             self._mat_dirty = False
@@ -521,9 +539,6 @@ class TorchBackend:
             self._lights_dev = lights_to_device(self._pack_lights(), self.device)
             self._light_dirty = False
             self._reset_film()
-        if self.device.type == "cuda":  # the clock stops after the uploads
-            torch.cuda.synchronize(self.device)
-        self.stats["sync_ms"].add((time.perf_counter() - t0) * 1e3)
 
     def _sync_instances(self) -> None:
         """Instance-only motion: rebuild TLAS + instance arrays, keep
@@ -536,7 +551,8 @@ class TorchBackend:
         if sig != self._group_sig:
             # grouping drifted since the pack (defensive: normally
             # set_3d_instances flags _geo_dirty first) -> full repack
-            self._rebuild_scene()
+            with trace.span("rfw.sync.rebuild"):
+                self._rebuild_scene()
             return
         ps_to_slot = dict(pack_meshes)
         meshes_info = [
@@ -545,46 +561,47 @@ class TorchBackend:
         ]
         if self._try_device_motion(meshes_info, instances):
             return
-        new_host = repack_instances(self._scene_host, meshes_info, instances)
-        # device TLAS: for large instance pools on the card, the 8-wide
-        # TLAS is built there as a complete 8-ary Morton tree instead of
-        # uploading the host collapse (the other TLAS fields still upload).
-        # Only the real prefix of the capacity-padded instance arenas
-        # (inst_mesh >= 0) enters the build.
-        n_inst = int((new_host.inst_mesh >= 0).sum())
-        use_device_tlas = (
-            _on_card(self.device)
-            and n_inst >= DEVICE_TLAS_MIN_INSTANCES
-            and tlas8_node_count(n_inst) <= new_host.tlas8_box.shape[0]
-            # with device dynamics the refit plan refits tlas8 boxes over
-            # the HOST topology, which the Morton tree would not match
-            and self._dyn is None
-            # the device builder emits 8-wide nodes only; wider packs
-            # (RFW_WIDE_ARITY) keep the host collapse
-            and new_host.tlas8_code.shape[1] == 8
-        )
-        fields = [f for f in _INSTANCE_FIELDS if not (
-            use_device_tlas and f in ("tlas8_box", "tlas8_code", "tlas8_cnt"))]
-        changed = {f: to_tensor(getattr(new_host, f), self.device) for f in fields}
-        if use_device_tlas:
-            def local(attr):
-                return to_tensor(np.stack([
-                    getattr(self._meshes[ps_to_slot.get(int(m), int(m))], attr)
-                    for m in new_host.inst_mesh[:n_inst]]), self.device)
+        with trace.span("rfw.sync.repack"):
+            new_host = repack_instances(self._scene_host, meshes_info, instances)
+            # device TLAS: for large instance pools on the card, the 8-wide
+            # TLAS is built there as a complete 8-ary Morton tree instead of
+            # uploading the host collapse (the other TLAS fields still upload).
+            # Only the real prefix of the capacity-padded instance arenas
+            # (inst_mesh >= 0) enters the build.
+            n_inst = int((new_host.inst_mesh >= 0).sum())
+            use_device_tlas = (
+                _on_card(self.device)
+                and n_inst >= DEVICE_TLAS_MIN_INSTANCES
+                and tlas8_node_count(n_inst) <= new_host.tlas8_box.shape[0]
+                # with device dynamics the refit plan refits tlas8 boxes over
+                # the HOST topology, which the Morton tree would not match
+                and self._dyn is None
+                # the device builder emits 8-wide nodes only; wider packs
+                # (RFW_WIDE_ARITY) keep the host collapse
+                and new_host.tlas8_code.shape[1] == 8
+            )
+            fields = [f for f in _INSTANCE_FIELDS if not (
+                use_device_tlas and f in ("tlas8_box", "tlas8_code", "tlas8_cnt"))]
+            changed = {f: to_tensor(getattr(new_host, f), self.device) for f in fields}
+            if use_device_tlas:
+                def local(attr):
+                    return to_tensor(np.stack([
+                        getattr(self._meshes[ps_to_slot.get(int(m), int(m))], attr)
+                        for m in new_host.inst_mesh[:n_inst]]), self.device)
 
-            (changed["tlas8_box"], changed["tlas8_code"],
-             changed["tlas8_cnt"]) = build_tlas8_device(
-                changed["inst_matrix"][:n_inst], local("aabb_min"), local("aabb_max"),
-                pad_nodes=int(new_host.tlas8_box.shape[0]))
-        self._scene_dev = self._scene_dev._replace(**changed)
-        self._scene_host = new_host
-        self._motion_syncs = 0  # the host rebuild refreshed the TLAS topology
-        if self._dyn is not None:
-            # the instance set / TLAS topology changed: rebuild the refit
-            # plan's TLAS schedule from the new host arrays
-            prev = self._dyn["tlas_plan"].passes_shape.shape[0]
-            self._dyn["tlas_plan"] = refit_device.plan_to_device(
-                refit_device.build_tlas_plan(new_host, min_passes=prev), self.device)
+                (changed["tlas8_box"], changed["tlas8_code"],
+                 changed["tlas8_cnt"]) = build_tlas8_device(
+                    changed["inst_matrix"][:n_inst], local("aabb_min"), local("aabb_max"),
+                    pad_nodes=int(new_host.tlas8_box.shape[0]))
+            self._scene_dev = self._scene_dev._replace(**changed)
+            self._scene_host = new_host
+            self._motion_syncs = 0  # the host rebuild refreshed the TLAS topology
+            if self._dyn is not None:
+                # the instance set / TLAS topology changed: rebuild the refit
+                # plan's TLAS schedule from the new host arrays
+                prev = self._dyn["tlas_plan"].passes_shape.shape[0]
+                self._dyn["tlas_plan"] = refit_device.plan_to_device(
+                    refit_device.build_tlas_plan(new_host, min_passes=prev), self.device)
 
     def _try_device_motion(self, meshes_info, instances) -> bool:
         """Instance-motion device route: when only matrices changed (the
@@ -627,31 +644,34 @@ class TorchBackend:
             self._motion = None  # the instance set changed: host repack
             return False
 
-        key = inst_mesh.tobytes()
-        if self._motion is None or self._motion["key"] != key:
-            # arm: static per-layout inputs (plan, local AABBs, live mask)
-            plan = (self._dyn["tlas_plan"] if self._dyn is not None
-                    else refit_device.plan_to_device(
-                        refit_device.build_tlas_plan(base), self.device))
-            lmin = np.zeros((icap, 3), np.float32)
-            lmax = np.zeros((icap, 3), np.float32)
-            lmin[:n] = np.stack([info[int(s)][0] for s in inst_mesh])
-            lmax[:n] = np.stack([info[int(s)][1] for s in inst_mesh])
-            self._motion = {
-                "key": key,
-                "plan": plan,
-                "lmin": to_tensor(lmin, self.device),
-                "lmax": to_tensor(lmax, self.device),
-                "live": to_tensor(np.arange(icap) < n, self.device),
-            }
-        pad = np.broadcast_to(np.eye(4, dtype=np.float32), (icap - n, 4, 4))
-        mats = np.concatenate([np.concatenate(mats_list), pad])
-        self._scene_dev = refit_device.instance_motion_update(
-            self._scene_dev, self._motion["plan"], to_tensor(mats, self.device),
-            self._motion["lmin"], self._motion["lmax"], self._motion["live"])
-        self._dev_stale |= set(refit_device.MOTION_FIELDS)
-        self._motion_syncs += 1
-        return True
+        with trace.span("rfw.sync.motion"):
+            key = inst_mesh.tobytes()
+            if self._motion is None or self._motion["key"] != key:
+                # arm: static per-layout inputs (plan, local AABBs, live mask)
+                plan = (self._dyn["tlas_plan"] if self._dyn is not None
+                        else refit_device.plan_to_device(
+                            refit_device.build_tlas_plan(base), self.device))
+                lmin = np.zeros((icap, 3), np.float32)
+                lmax = np.zeros((icap, 3), np.float32)
+                lmin[:n] = np.stack([info[int(s)][0] for s in inst_mesh])
+                lmax[:n] = np.stack([info[int(s)][1] for s in inst_mesh])
+                self._motion = {
+                    "key": key,
+                    "plan": plan,
+                    "lmin": to_tensor(lmin, self.device),
+                    "lmax": to_tensor(lmax, self.device),
+                    "live": to_tensor(np.arange(icap) < n, self.device),
+                }
+            pad = np.broadcast_to(np.eye(4, dtype=np.float32), (icap - n, 4, 4))
+            mats = np.concatenate([np.concatenate(mats_list), pad])
+            with trace.span("rfw.wait.upload"):
+                mats = to_tensor(mats, self.device)
+            self._scene_dev = refit_device.instance_motion_update(
+                self._scene_dev, self._motion["plan"], mats,
+                self._motion["lmin"], self._motion["lmax"], self._motion["live"])
+            self._dev_stale |= set(refit_device.MOTION_FIELDS)
+            self._motion_syncs += 1
+            return True
 
     def _sync_textures(self) -> None:
         tex_list: List = []
@@ -677,8 +697,73 @@ class TorchBackend:
         view_3d: CameraView3D,
         mode: RenderMode = RenderMode.DEFAULT,
     ) -> np.ndarray:
-        if self._scene_dev is None or self._scene_dev.inst_matrix.shape[0] == 0:
-            return np.zeros((self.height, self.width, 4), np.uint8)
+        with trace.span("rfw.render"):
+            t0 = time.perf_counter()
+            if self._scene_dev is None or self._scene_dev.inst_matrix.shape[0] == 0:
+                frame = np.zeros((self.height, self.width, 4), np.uint8)
+            else:
+                frame = self._render_frame(view_2d, view_3d, mode)
+                # the frame is on the host: the device work is done
+                dt = time.perf_counter() - t0
+                self.stats["render_ms"].add(dt * 1e3)
+                rays = (self.width * self.height * self.settings.samples_per_frame
+                        * 2 * (self.settings.max_bounces + 1))
+                self.stats["mrays_per_s"].add(rays / max(dt, 1e-9) / 1e6)
+                self.stats["spp_total"] = self._spp
+            trace.end_frame()
+        return frame
+
+    def _render_frame(self, view_2d: Optional[CameraView2D], view_3d: CameraView3D,
+                      mode: RenderMode) -> np.ndarray:
+        """The samples, the film and the 2D overlay of one frame."""
+        with trace.span("rfw.render.setup"):
+            cfg, view_dev, sky_tex, keys = self._frame_setup(view_3d, mode)
+        last = None
+        for s, key in enumerate(keys):
+            res = render_sample(
+                self._scene_dev, self._mats_dev, self._atlas_dev, self._lights_dev,
+                view_dev, self.width, self.height, cfg, sky_tex=sky_tex,
+                sample_index=self._spp + s, key=key,
+            )
+            with trace.span("rfw.film"):
+                film_mod.add_sample(self._film, res.radiance)
+            last = res
+        self._spp += self.settings.samples_per_frame
+
+        # AOV debug views (reference RenderMode -> G-buffer channels)
+        if mode in (RenderMode.NORMAL, RenderMode.ALBEDO, RenderMode.GBUFFER,
+                    RenderMode.SCREEN_SPACE, RenderMode.SSAO,
+                    RenderMode.FILTERED_SSAO) and last is not None:
+            frame = self._aov_frame(last, mode)
+        else:
+            with trace.span("rfw.film"):
+                img = film_mod.tonemap(
+                    self._film, float(self._spp), self.width, self.height,
+                    exposure=self.settings.exposure, mode=self.settings.tonemap,
+                    fxaa=self.settings.fxaa,
+                )
+                with trace.span("rfw.wait.readback"):
+                    frame = img.cpu().numpy()
+
+        # 2D overlay
+        if self._meshes_2d and view_2d is not None:
+            pairs = [
+                (self._meshes_2d[i], self._instances_2d[i])
+                for i in self._meshes_2d
+                if i in self._instances_2d and self._instances_2d[i].count > 0
+            ]
+            if pairs:
+                ov = rasterize_2d(
+                    pairs, self._textures, view_2d.matrix, self.width, self.height
+                )
+                frame = composite_overlay(frame, ov)
+        return frame
+
+    def _frame_setup(self, view_3d: CameraView3D, mode: RenderMode):
+        """render()'s work before its first sample: default materials,
+        atlas and lights where none were set, the film (reset when the view
+        changed or `mode` asks), the RenderConfig, the view on the device,
+        the sky texture id and each sample's threefry key."""
         dev = self.device
         if self._mats_dev is None:
             self._materials = _default_materials()
@@ -699,7 +784,6 @@ class TorchBackend:
             self._film = film_mod.new_film(self.width, self.height, device=dev)
             self._spp = 0
 
-        t0 = time.perf_counter()
         cfg = RenderConfig(
             max_bounces=self.settings.max_bounces,
             clamp=self.settings.clamp,
@@ -716,54 +800,14 @@ class TorchBackend:
             # delta-only scenes skip the NEE<->BSDF MIS machinery
             has_area_lights=self._area.count > 0,
         )
-        view_dev = torch.from_numpy(view_arr).to(dev)
-        sky_tex = (torch.tensor([self._sky_tex_id], dtype=torch.int32, device=dev)
-                   if self._sky_tex_id >= 0 else None)
-        last = None
+        with trace.span("rfw.wait.upload"):
+            view_dev = torch.from_numpy(view_arr).to(dev)
+            sky_tex = (torch.tensor([self._sky_tex_id], dtype=torch.int32, device=dev)
+                       if self._sky_tex_id >= 0 else None)
         key = threefry.PRNGKey(42)
-        for s in range(self.settings.samples_per_frame):
-            res = render_sample(
-                self._scene_dev, self._mats_dev, self._atlas_dev, self._lights_dev,
-                view_dev, self.width, self.height, cfg, sky_tex=sky_tex,
-                sample_index=self._spp + s, key=threefry.fold_in(key, self._spp + s),
-            )
-            film_mod.add_sample(self._film, res.radiance)
-            last = res
-        self._spp += self.settings.samples_per_frame
-
-        # AOV debug views (reference RenderMode -> G-buffer channels)
-        if mode in (RenderMode.NORMAL, RenderMode.ALBEDO, RenderMode.GBUFFER,
-                    RenderMode.SCREEN_SPACE, RenderMode.SSAO,
-                    RenderMode.FILTERED_SSAO) and last is not None:
-            frame = self._aov_frame(last, mode)
-        else:
-            frame = film_mod.tonemap(
-                self._film, float(self._spp), self.width, self.height,
-                exposure=self.settings.exposure, mode=self.settings.tonemap,
-                fxaa=self.settings.fxaa,
-            ).cpu().numpy()
-
-        # the frame is on the host: the device work is done
-        dt = time.perf_counter() - t0
-        self.stats["render_ms"].add(dt * 1e3)
-        rays = (self.width * self.height * self.settings.samples_per_frame
-                * 2 * (self.settings.max_bounces + 1))
-        self.stats["mrays_per_s"].add(rays / max(dt, 1e-9) / 1e6)
-        self.stats["spp_total"] = self._spp
-
-        # 2D overlay
-        if self._meshes_2d and view_2d is not None:
-            pairs = [
-                (self._meshes_2d[i], self._instances_2d[i])
-                for i in self._meshes_2d
-                if i in self._instances_2d and self._instances_2d[i].count > 0
-            ]
-            if pairs:
-                ov = rasterize_2d(
-                    pairs, self._textures, view_2d.matrix, self.width, self.height
-                )
-                frame = composite_overlay(frame, ov)
-        return frame
+        keys = [threefry.fold_in(key, self._spp + s)
+                for s in range(self.settings.samples_per_frame)]
+        return cfg, view_dev, sky_tex, keys
 
     def resize(self, width: int, height: int, scale: float = 1.0) -> None:
         self.width = int(width * scale)
