@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sass-against DIR   # the walk kernels' SASS
                                                # against another tree's
+    python3 chip_smoke.py --sobol              # phase 19 alone
 
 Drives rfw_tpu_torch's main paths — one progressive path-traced sample per
 call of `render_sample`, 1920x1080, 1 bounce + next-event estimation, Sobol
@@ -252,6 +253,16 @@ Phases (any failed check raises, so the script exits nonzero):
      and K3 and is finite and non-zero; (c) the host's decode ms per
      megapixel of a 2048x2048 PNG written by utils/png.py and of the
      1024x1024 JPEG.
+ 19. the Sobol kernel (csrc/sampler.cu): the five draws of one 1080p
+     Sobol sample captured (camera jitter on the swizzled pixel ids,
+     vertex 0's light and BSDF slots on its sorted hit prefix, the
+     bounce's slot on its live prefix): 5 kernel launches, each draw
+     launched once more and identical bit for bit to the plain version
+     (`sample_slot_plain`), also with a per-lane sample index; card ms
+     over 10 launches beside its bound (the ids read and the uniforms
+     written at 3.35 TB/s against `sobol_ops` at the INT32 rate) and the
+     plain version's ms (tests/test_torch_sampler.py's
+     `test_sobol_kernel_matches_plain_on_card`).
 The tests that need a card (tests/test_torch_*.py, `*_on_card`) cannot run
 where the card is (their conftest imports jax); these phases make their
 checks (.claude/skills/verify/SKILL.md maps each test to its phase).
@@ -281,7 +292,11 @@ compared calls, their disagreements counted in max_abs_err. K1-K5
 carry their supernode `arity`; the entries of arity 16 and 32 (phase 16)
 count their launches in that arity's counted sample and sum their times,
 plain times and bounds over phase 16's compared calls at that arity (a
-16-wide row is 512 B, a 32-wide one 1 KiB). The last line is
+16-wide row is 512 B, a 32-wide one 1 KiB). The last entry, S1, is
+phase 19's Sobol kernel, which replaces no TPU kernel (`replaces` null):
+its launches in one sample, its times, plain times and bounds summed over
+that sample's five draws, each bounded by bytes or by its 32-bit
+operations at the INT32 rate. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -333,6 +348,17 @@ FLOP_PER_BOX = 25
 FLOP_PER_TRI = 44
 # warp instructions an H100 SM issues a clock (4 sub-partitions, one each)
 WARP_ISSUE_PER_CLOCK = 4
+
+
+def main_path_settings(mats_np, lights_np) -> dict:
+    """RenderConfig's fields of phases 4-5 (two_phase "off") for the scene's
+    materials and lights."""
+    from rfw_tpu_torch.render.wavefront import mat_feature_mask, tex_kinds_mask
+
+    return dict(max_bounces=BOUNCES, clamp=20.0, sky_intensity=0.35, sampler="sobol",
+                two_phase="off", aovs=False, sort_secondary=True,
+                tex_mask=tex_kinds_mask(mats_np.tex), mat_features=mat_feature_mask(mats_np),
+                has_area_lights=bool(lights_np.n_area[0] > 0))
 
 
 def card_line() -> str:
@@ -4053,6 +4079,129 @@ def textures_on_card(card, dev) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 19
+#: the card's INT32 rate: 64 a clock per SM (half its fp32 lanes), 132 SMs,
+#: 1.98 GHz
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SOBOL_REPS = 10
+
+
+def sobol_ops(n: int) -> int:
+    """32-bit operations of one lane of csrc/sampler.cu's n-uniform draw, as
+    its source writes them: a hash 8 (three shifts, three xors, two
+    products), a Laine-Karras permutation 9 (a sum, four products, four
+    xors), an Owen scramble 11 (two __brev and the permutation), a bit of
+    sobol_dim1 2 (a test, an xor), a uniform 2 (a conversion, a scaling)."""
+    hash_, owen = 8, 2 + 9
+    ops = 3 + hash_  # seed: two products, a sum, the hash
+    ops += hash_ + owen  # the scrambled index
+    ops += 1 + 1 + hash_ + owen  # d0: __brev, the seed's xor, its hash, the scramble
+    ops += 2 * 32 + 1 + hash_ + owen  # d1
+    ops += 2 * 2
+    if n == 3:
+        ops += 1 + hash_ + owen + 1 + 2  # d2
+    return ops
+
+
+def sobol_bound(n: int, lanes: int, per_lane_index: bool = False) -> tuple:
+    """(least ms, "bytes" or "operations") of one n-uniform draw over
+    `lanes`: the pixel ids (and per-lane indices) read and the uniforms
+    written at 3.35 TB/s against sobol_ops at the INT32 rate."""
+    n_bytes = lanes * (4 + 4 * per_lane_index + 4 * n)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = lanes * sobol_ops(n) / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def capture_sobol(run) -> list:
+    """run()'s Sobol draws: (sample_index, pixel ids, slot, n) of each."""
+    from rfw_tpu_torch.render import wavefront as wf
+
+    calls, draw = [], wf.sample_slot
+
+    def capture(sample_index, pid, slot, n=2):
+        calls.append((sample_index, pid.clone(), slot, n))
+        return draw(sample_index, pid, slot, n)
+
+    with patched(wf, sample_slot=capture):
+        run()
+    torch.cuda.synchronize()
+    return calls
+
+
+def phase19(card, dev, scene, mats, atlas, lights, view, base) -> dict:
+    """The Sobol kernel on the main path's pixel ids: one 1080p sample's
+    draws captured (camera jitter on the swizzled ids, vertex 0's sorted
+    hit prefix, a bounce's live prefix), each launched once and bit for
+    bit the plain version's, also with a per-lane index; its card ms over
+    SOBOL_REPS launches beside its bound and the plain version's ms.
+    Returns the kernels line's entry."""
+    from rfw_tpu_torch.render import sampler
+    from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
+
+    t_phase = time.perf_counter()
+    cfg = RenderConfig(**dict(base, two_phase="auto"))
+    before = sampler.LAUNCHES
+    calls = capture_sobol(lambda: render_sample(scene, mats, atlas, lights, view, W, H, cfg,
+                                                sample_index=3))
+    draws = sampler.LAUNCHES - before
+    log(card, f"phase 19: one 1080p sample draws {len(calls)} times, {draws} Sobol kernel "
+              f"launches: " + ", ".join(f"slot {c[2]} n={c[3]} {c[1].shape[0]} lanes"
+                                        for c in calls))
+    assert draws == len(calls) == 5, (draws, len(calls))
+    rows = []
+    for si, pid, slot, n in calls:
+        before = sampler.LAUNCHES
+        got = sampler.sample_slot(si, pid, slot, n)
+        assert sampler.LAUNCHES == before + 1
+        ref = sampler.sample_slot_plain(si, pid, slot, n)
+        assert torch.equal(bits(got), bits(ref)), f"slot {slot}: kernel and plain differ"
+        ms = cuda_ms(lambda: sampler.sample_slot(si, pid, slot, n), SOBOL_REPS)
+        plain_ms = cuda_ms(lambda: sampler.sample_slot_plain(si, pid, slot, n), SOBOL_REPS)
+        bound_ms, bound_by = sobol_bound(n, pid.shape[0])
+        rows.append(dict(slot=slot, n=n, lanes=pid.shape[0], ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0))
+        log(card, f"phase 19 sobol slot {slot} n={n} on {pid.shape[0]} lanes: identical; "
+                  f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"{sobol_ops(n)} operations a lane), {100 * bound_ms / ms:.1f}% of it; "
+                  f"plain {plain_ms:.3f} ms")
+    si, pid, slot, n = calls[2]
+    idx = torch.arange(pid.shape[0], dtype=torch.int64, device=dev) * 2654435761 + 2**32
+    for n in (2, 3):
+        assert torch.equal(bits(sampler.sample_slot(idx, pid, slot, n)),
+                           bits(sampler.sample_slot_plain(idx, pid, slot, n))), "per-lane index"
+    ms, plain_ms = sum(r["ms"] for r in rows), sum(r["plain_ms"] for r in rows)
+    log(card, f"phase 19: a sample's 5 draws: kernel {ms:.4f} ms, bound "
+              f"{sum(r['bound_ms'] for r in rows):.4f} ms, plain {plain_ms:.2f} ms; a per-lane "
+              f"index identical too; {time.perf_counter() - t_phase:.2f} s")
+    return kernel_row("S1 sobol_slot", "rfw_tpu_torch/csrc/sampler.cu", None, draws, rows)
+
+
+def sobol_alone(card) -> int:
+    """Phase 19 alone (`python3 chip_smoke.py --sobol`) on phase 2's scene
+    and phase 5's settings: the kernels build at first use."""
+    from rfw_tpu_torch.convert import from_numpy_scene
+    from rfw_tpu_torch.render.wavefront import mat_feature_mask, tex_kinds_mask
+    from rfw_tpu_torch.scenes import build_scene
+
+    from rfw_tpu_torch.ops import _build
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    (built,) = _build.build(["sampler"])
+    log(card, f"sampler kernel build: {built.seconds:.2f} s")
+    for line in built.log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(card, "ptxas sampler: " + line.strip())
+    scene_np, mats_np, lights_np, atlas_np, camera, _, _ = build_scene(SEED, views=True)
+    scene, mats, lights, atlas = from_numpy_scene(scene_np, mats_np, lights_np, atlas_np, dev)
+    view = torch.from_numpy(camera.get_view(W, H).as_array()).to(dev)
+    base = main_path_settings(mats_np, lights_np)
+    print(json.dumps({"kernels": [phase19(card, dev, scene, mats, atlas, lights, view, base)]}))
+    print(card)
+    return 0
+
+
 def sass_against(card, other: Path) -> None:
     """The walk kernels' SASS against another tree's (`python3 chip_smoke.py
     --sass-against DIR`, DIR e.g. the parent commit unpacked by `git
@@ -4088,6 +4237,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--sass-against"]:
         sass_against(card_line(), Path(sys.argv[2]).resolve())
         return 0
+    if sys.argv[1:2] == ["--sobol"]:
+        return sobol_alone(card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -4122,7 +4273,7 @@ def main() -> int:
     # ---- 2. scene
     from rfw_tpu_torch.convert import from_numpy_scene
     from rfw_tpu_torch.render.film import add_sample, new_film, tonemap
-    from rfw_tpu_torch.render.wavefront import mat_feature_mask, render_sample, tex_kinds_mask
+    from rfw_tpu_torch.render.wavefront import render_sample
     from rfw_tpu_torch.scenes import build_scene
 
     t0 = time.perf_counter()
@@ -4143,10 +4294,7 @@ def main() -> int:
     tie_between_treelets(card, dev)
 
     # ---- 4. render through the kernels vs through the plain traversal
-    base = dict(max_bounces=BOUNCES, clamp=20.0, sky_intensity=0.35, sampler="sobol",
-                two_phase="off", aovs=False, sort_secondary=True,
-                tex_mask=tex_kinds_mask(mats_np.tex), mat_features=mat_feature_mask(mats_np),
-                has_area_lights=bool(lights_np.n_area[0] > 0))
+    base = main_path_settings(mats_np, lights_np)
     sw, sh = 256, 144
     view_small = torch.from_numpy(camera.get_view(sw, sh).as_array()).to(dev)
     r_k = render_sample(scene, mats, atlas, lights, view_small, sw, sh,
@@ -4247,6 +4395,9 @@ def main() -> int:
     # ---- 18. textures decoded without Pillow, a textured glTF on the card
     tex_launches = phase18(card, dev)
 
+    # ---- 19. the Sobol kernel on the main path's pixel ids
+    sobol_row = phase19(card, dev, scene, mats, atlas, lights, view_full, base)
+
     row = kernel_row
 
     def fallback(kind):
@@ -4299,7 +4450,7 @@ def main() -> int:
         k["launches_bench"] = sum(bench_launches.get(kind, 0) for kind in kinds)
         k["launches_uncompacted"] = sum(p17["launches"].get(kind, 0) for kind in kinds)
         k["launches_textures"] = sum(tex_launches.get(kind, 0) for kind in kinds)
-    kernels += wide["entries"]
+    kernels += [*wide["entries"], sobol_row]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_p, _i = ctypes.c_void_p, ctypes.c_int
+_p, _i, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 #: C entry points per source: function name -> argtypes (each returns int)
 SIGNATURES = {
     "traverse": {
@@ -89,6 +89,16 @@ SIGNATURES = {
             _p,  # stream
         ],
         "rfw_tlas_entries_info": [_i, _i, _i, _i, _p],  # K, stats, arity, n_rays, out[8]
+    },
+    "sampler": {
+        "rfw_sobol_slot": [
+            _i,  # n (2 or 3)
+            _p, _p,  # pixel_id (R,) int32, index_lanes (R,) uint32 or null
+            _u, _u,  # index, slot
+            _i,  # n_lanes
+            _p,  # out (R, n) float32
+            _p,  # stream
+        ],
     },
     "ubench_leaf": {
         "rfw_ubench_leaf": [

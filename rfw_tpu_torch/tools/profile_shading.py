@@ -22,7 +22,10 @@ are device times by CUDA events, the least of `--reps` calls, divided by
   disney_eval        `disney.disney_eval_c`
   disney_pdf         `disney.disney_pdf_c`
   disney_sample      `disney.disney_sample_c` (its eval and pdf included)
-  sobol3             one `sampler.sample_slot(R, 3)` draw
+  sobol3             one `sampler.sample_slot(R, 3)` draw (on the card the
+                     Sobol kernel, csrc/sampler.cu)
+  sobol3_plain       the same draw by `sampler.sample_slot_plain`, the
+                     kernel's yardstick (eager int64 torch operations)
   frame_tolocal      `disney.build_tangent_frame_c` and two `to_local_c`
 
 The reference's `onehot_inst` and `onehot_mat` time the TPU's one-hot MXU
@@ -51,7 +54,8 @@ from rfw_tpu_torch.tools import (
 )
 
 STAGES = ("gather_tri_shade", "gather_atlas", "basis_full", "basis_math", "sample_light",
-          "disney_eval", "disney_pdf", "disney_sample", "sobol3", "frame_tolocal")
+          "disney_eval", "disney_pdf", "disney_sample", "sobol3", "sobol3_plain",
+          "frame_tolocal")
 
 
 def main(argv=None) -> dict:
@@ -68,7 +72,7 @@ def main(argv=None) -> dict:
     from rfw_tpu_torch.ops.traverse import closest_hit, prepare_scene
     from rfw_tpu_torch.render import disney, threefry
     from rfw_tpu_torch.render.disney import v3_split
-    from rfw_tpu_torch.render.sampler import sample_slot
+    from rfw_tpu_torch.render.sampler import sample_slot, sample_slot_plain
     from rfw_tpu_torch.render.wavefront import (
         _fetch_material_c, _inst_table, _sample_light_c, _shading_basis_c,
     )
@@ -203,14 +207,15 @@ def main(argv=None) -> dict:
     timed("disney_sample", smp)
 
     # ---- the sampler
-    def sob():
+    def sob(draw):
         acc = zeros()
         for i in range(IT):
-            u = sample_slot(5 + i, pid, 2 + i, 3)
+            u = draw(5 + i, pid, 2 + i, 3)
             acc = acc + u[:, 0] + u[:, 1] + u[:, 2]
         return acc
 
-    timed("sobol3", sob)
+    timed("sobol3", lambda: sob(sample_slot))
+    timed("sobol3_plain", lambda: sob(sample_slot_plain))
 
     # ---- tangent frame and to_local
     def frame():

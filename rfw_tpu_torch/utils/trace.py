@@ -61,6 +61,10 @@ host already holds:
                  its truncated or undecided mask)
   tp.retraced    those of them retraced through K1/K2, at most the
                  fallback's capacity
+  sampler.kernel_draws
+                 launches of the Sobol kernel (render/sampler.py's
+                 `sample_slot` on the card): 5 a 1-bounce Sobol sample,
+                 0 where the draws took the plain version
 
 `tp.truncated - tp.retraced` is the number of rays that kept an
 approximate answer (a two-phase hit among their kept instances, or

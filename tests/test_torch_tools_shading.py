@@ -67,7 +67,7 @@ def test_profile_shading_reports_every_stage(gltf_path):
     out = profile_shading.main(_args(gltf_path, "--reps", 1, "--iters", 2))
     assert set(profile_shading.STAGES) >= {
         "gather_tri_shade", "gather_atlas", "basis_math", "sample_light", "disney_eval",
-        "disney_pdf", "disney_sample", "sobol3", "frame_tolocal"}
+        "disney_pdf", "disney_sample", "sobol3", "sobol3_plain", "frame_tolocal"}
     for k in profile_shading.STAGES:
         assert out[k] > 0, k
     assert out["rays"] == W * H and out["card"].startswith("cpu")
