@@ -1219,6 +1219,11 @@ def render_sample(
                 n = _pick_prefix(sizes, live)
                 trace.count("lanes.shaded", n)
                 trace.count("lanes.live", live)
+                # a rung below the 1-bounce ladder's floor: the deep ladder's
+                trace.count("ladder.subfloor", int(n < sizes0[0]))
+                if depth >= 2:
+                    trace.count("lanes.shaded.deep", n)
+                    trace.count("lanes.live.deep", live)
                 return _trace_and_shade(st, depth, last, n)
 
         # ------------------------------------------------------- vertex 0

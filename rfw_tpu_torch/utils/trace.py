@@ -23,7 +23,9 @@ Spans of the frame's stages, which tile the program's part of a frame:
   rfw.render          TorchBackend.render
   rfw.render.setup    render()'s work before its first render_sample
   rfw.vertex0         render_sample from its entry through vertex 0
-  rfw.bounce.<d>      bounce vertex d: sort, live count, trace, shading
+  rfw.bounce.<d>      bounce vertex d: sort, live count, trace, shading;
+                      d runs 1..max_bounces, so rfw.bounce.2 and on appear
+                      only at a path depth of 2 or more
   rfw.film            add_sample, tonemap and the readback
 
 Spans of traversal, around each kernel call's host side:
@@ -57,6 +59,16 @@ host already holds:
                  RFW_COMPACTION=0 reads no count and counts nothing)
   lanes.live     the lanes alive among them: vertex 0's hits, a bounce's
                  alive count
+  lanes.shaded.deep, lanes.live.deep
+                 the same two counts of the bounce vertices at depth 2
+                 or more only (render/wavefront.py:render_sample's
+                 `bounce_vertex`); a 1-bounce frame records neither
+  ladder.subfloor
+                 bounce vertices whose live prefix took one of the two
+                 rungs the deep ladder adds below the 1-bounce ladder's
+                 floor (`_prefix_sizes` at max_bounces >= 3,
+                 `_pick_prefix`; render_sample's `bounce_vertex`): 0
+                 under RFW_DEEP_LADDER=0 and at fewer than 3 bounces
   tp.truncated   rays a two-phase call could not decide (the nonzero of
                  its truncated or undecided mask)
   tp.retraced    those of them retraced through K1/K2, at most the
