@@ -10,8 +10,9 @@ call of `render_sample`, 1920x1080, 1 bounce + next-event estimation, Sobol
 sampler, film accumulation and tonemap — on a procedural scene at the
 flagship scene's scale (4 icosphere meshes of 20,480 triangles, 256
 instances, textured floor, area + spot + sun lights; made from a seed),
-with two_phase="off" (every ray through the classic kernel) and with the
-default two_phase="auto" (bounce rays through the two-phase path), and on
+with two_phase="off" (every ray through the classic kernel) and with
+two_phase="on" (bounce rays through the two-phase path; the default
+"auto" keeps them on the classic kernel on the card), and on
 an instance-heavy scene of 10,000 instances; then drives the same scene
 through the backend a user calls, `TorchBackend`, and through the app
 layer a user writes, `Instance` and `Scene`.
@@ -61,8 +62,8 @@ Phases (any failed check raises, so the script exits nonzero):
      (the dense-scan gate forced to 0), then the A/B in turns (the
      variants in order, then in reverse): classic K1 against the
      two-phase call with either phase A on the captured bounce rays, and
-     ms per sample of two_phase="off" against "auto" (dense scan, then
-     K4); the first "auto" turn is the counted run of the two-phase main
+     ms per sample of two_phase="off" against "on" (dense scan, then
+     K4); the first "on" turn is the counted run of the two-phase
      path (launch counters reset just before it, read just after it);
   8. an instance-heavy scene at 1920x1080 (10,000 instances: 20,480-
      triangle spheres among small icospheres and cubes; its arena is far
@@ -77,7 +78,7 @@ Phases (any failed check raises, so the script exits nonzero):
      yardstick) and the stages
      of the two-phase call; then the A/B in turns: classic K1 against the
      two-phase call with and without K6 on the captured bounce rays, and
-     ms per sample of "off", "auto", and "auto" with both switches set,
+     ms per sample of "off", "on", and "on" with both switches set,
      whose first turn is the counted run (every kernel must launch);
   9. the microbenchmarks of rfw_tpu_torch.tools: U1 (the leaf-test stages)
      in every variant against its plain version in one block and in a
@@ -101,7 +102,8 @@ Phases (any failed check raises, so the script exits nonzero):
      scene fed through the 14-method contract (Mesh3D.view() meshes,
      instances, materials, textures, spot, sun and area lights), phase 5's
      settings with two_phase="auto": its first pack equals build_scene's
-     field for field, its first frame launches K1, K2 and K3 (counters
+     field for field, its first frame launches K1 and K2 and no K3 (the
+     bounce rays by K1 under "auto" on the card; counters
      reset just before it, read just after), its first HDR frame equals
      render_sample at sample 0 on its own tensors, tonemap(fxaa=True) on
      the card agrees with the CPU on the same accumulator (99.9% of
@@ -115,7 +117,7 @@ Phases (any failed check raises, so the script exits nonzero):
      the emissive material), 5 frames by run_windowed(HeadlessWindow):
      the first Scene.synchronize packs build_scene's arenas field for
      field and its lights (directions normalized), the first frame
-     launches K1, K2 and K3 (counters reset just before it, read at its
+     launches K1 and K2 and no K3 (counters reset just before it, read at its
      present); each frame's ms, render ms and Mrays/s and
      Scene.synchronize's own host ms; (b) a SphereWorld system moving 64
      sphere instances by InstanceHandle3D.set_trs, 5 frames: one motion
@@ -132,7 +134,7 @@ Phases (any failed check raises, so the script exits nonzero):
      skinned, morphed tube of 20,480 triangles (24 joints in a chain, 2
      morph targets) under two skins, 8 animated frames: every sync takes
      the device route (apply_dynamic: no repack, KBs uploaded), the first
-     dynamic frame launches K1, K2 and K3 (counters reset just before its
+     dynamic frame launches K1 and K2 and no K3 (counters reset just before its
      sync, read after its render), the last frame's arenas within 1e-4 of
      a full host repack of the same pose and its HDR frame within the
      radiance tolerance of the host route's (device_dynamics=False), ms
@@ -149,7 +151,7 @@ Phases (any failed check raises, so the script exits nonzero):
      identical to the same call on the CPU; ms per sample of "random"
      against "sobol" in turns;
  13. the scale-out layer and the examples: (a) the 1080p frame of phase
-     5's settings with two_phase="auto" rendered as four row0 strips of
+     5's settings with two_phase="on" rendered as four row0 strips of
      270 rows, one after another, against the full frame (differing
      pixels per output; each live strip ray matched by its bits to the
      frame's same ray: closest hits with the same t but other ids counted
@@ -172,7 +174,7 @@ Phases (any failed check raises, so the script exits nonzero):
      256x144 Sobol render from each flagship pack at phase 4's gate; the
      backend's host routes (device_dynamics and device_motion off) on
      phase 12 (a)'s scene, dynamic and motion syncs by either builder in
-     turns; (b) 256x144 1-spp Sobol frames (two_phase="auto") under
+     turns; (b) 256x144 1-spp Sobol frames (two_phase="on") under
      "packet", "lockstep", "pallas" and "pallas_hbm" against "auto" at
      phase 4's gate, ms per sample by CUDA events, the "pallas" frame's
      launches counted (counters reset just before it, read just after),
@@ -187,10 +189,10 @@ Phases (any failed check raises, so the script exits nonzero):
      card against the CPU (bit for bit), with its time;
  15. the measurement entry point and its tools: (a) `python -m
      rfw_tpu_torch.bench` (rfw_tpu_torch.bench.main) at 1920x1080, 8
-     samples, 3 repeats, with --two-phase off and auto: each JSON line
+     samples, 3 repeats, with --two-phase off and on: each JSON line
      parsed (a positive value, a finite film), and the launches of each
      whole run (counters reset just before it, read just after) a sample:
-     K1 2, K2 2 under "off", and K3 1 besides under "auto"; (b) each layer
+     K1 2, K2 2 under "off", and K3 1 besides under "on"; (b) each layer
      tool of rfw_tpu_torch.tools (bisect_e2e, profile_e2e, bench_traverse
      with --occluded --tp-occluded --stats, bench_items plain, --fused and
      --breakdown --pallas-A, check_traverse, diag_live) at the reference
@@ -210,26 +212,26 @@ Phases (any failed check raises, so the script exits nonzero):
      instance's registers and occupancy; (b) no kernel push finds its
      96-entry stack full (walk_counts asserts it of every compared call,
      in every phase); (c) one counted 1080p sample per wide arity
-     (two_phase "auto", RFW_TP_SHADOW=1, phase A by K4: K1, K2, K3, K4 and
+     (two_phase "on", RFW_TP_SHADOW=1, phase A by K4: K1, K2, K3, K4 and
      K5 each launch), K1 on one sample's bounce rays under each sort key
      and in pixel order, `python -m rfw_tpu_torch.bench` as a subprocess
-     with two_phase "off" and "auto" under RFW_WIDE_ARITY 8, 16 and 32
+     with two_phase "off" and "on" under RFW_WIDE_ARITY 8, 16 and 32
      and, at 8, under RFW_SORT_KEY morton, mortonoct and instance (ms per
      sample, Mrays/s, peak memory), and TorchBackend(1920, 1080) on a
      16-wide pack with the skinned tube of phase 12 (a): its first HDR
      frame equals render_sample on its own tensors bit for bit, a skin
      pose sync and a motion sync take the host routes;
  17. the last switches and tools: (a) the flagship's 1080p Sobol sample
-     under RFW_COMPACTION=0 with two_phase "off" and "auto": no host read
+     under RFW_COMPACTION=0 with two_phase "off" and "on": no host read
      of a live count (no `_pick_prefix` call and no vertex-0 sort, where
      the compacted sample makes two and one), its HDR frame against the
      compacted sample's at phase 4's per-pixel tolerance, K1 and K2
      against their plain versions on the captured uncompacted vertex-0
      shadow, bounce and bounce shadow calls (every lane of the frame,
      dead ones included), ms per sample compacted against uncompacted in
-     turns, the uncompacted "auto" run counted; (b) `python -m
+     turns, the uncompacted "on" run counted; (b) `python -m
      rfw_tpu_torch.bench` as subprocesses (3 repeats) under
-     RFW_COMPACTION 1 and 0 with "off" and "auto", and under
+     RFW_COMPACTION 1 and 0 with "off" and "on", and under
      RFW_DEEP_LADDER 1 and 0 at 3 bounces: ms per sample, Mrays/s, peak
      memory and launches a sample; (c) rfw_tpu_torch.tools.bench_nee in
      its default mode and sweeping 4 and 32 point lights (finite
@@ -285,8 +287,8 @@ phase 11's first frame, launches_dynamics in phase 12's first dynamic
 frame (its sync and its render), launches_parallel in phase 13's
 counted film strip, launches_tiers in phase 14's "pallas" frame,
 launches_twophase_call in its public two-phase call and launches_bench in
-phase 15's "auto" bench run (25 samples: the warm-up and 3 x 8),
-launches_uncompacted in phase 17 (a)'s counted RFW_COMPACTION=0 "auto"
+phase 15's "on" bench run (25 samples: the warm-up and 3 x 8),
+launches_uncompacted in phase 17 (a)'s counted RFW_COMPACTION=0 "on"
 run (3 samples), launches_textures in phase 18's textured glTF frame; K1's and K2's uncompacted_calls are phase 17 (a)'s
 compared calls, their disagreements counted in max_abs_err. K1-K5
 carry their supernode `arity`; the entries of arity 16 and 32 (phase 16)
@@ -1247,7 +1249,7 @@ def phase7(card, dev, scene, mats, atlas, lights, view, ps, base):
     from rfw_tpu_torch.ops import traverse_items as ti
     from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
 
-    cfg = RenderConfig(**{**base, "two_phase": "auto"})
+    cfg = RenderConfig(**{**base, "two_phase": "on"})
     cfg_off = RenderConfig(**base)
 
     def sample(c, s):
@@ -1286,11 +1288,11 @@ def phase7(card, dev, scene, mats, atlas, lights, view, ps, base):
         ("two-phase (dense phase A)", lambda: ti.twophase_closest_with_fallback(ps, o, d, tl, **kw)),
         ("two-phase (K4 phase A)", tp_k4)])
     launches, _, _ = ab_samples(card, dev, "flagship scene", [
-        ("off", cfg_off, env), ("auto", cfg, env),
-        ("auto, phase A by K4", cfg, lambda: patched(ti, DENSE_A_MAX_INST=0))],
-        sample, counted="auto")
+        ("off", cfg_off, env), ("on", cfg, env),
+        ("on, phase A by K4", cfg, lambda: patched(ti, DENSE_A_MAX_INST=0))],
+        sample, counted="on")
     for k in ("closest", "occluded", "items_closest"):
-        assert launches[k] > 0, f"the two-phase main path never launched {k}"
+        assert launches[k] > 0, f"the two-phase path never launched {k}"
     # phase 16 holds the wide walks on the same inputs
     inputs = dict(K3=[("bounce closest items", items_k3)],
                   K5=[("bounce shadow items", items_k5)],
@@ -1323,7 +1325,7 @@ def phase8(card, dev, base):
               f"built and uploaded in {time.perf_counter() - t0:.2f} s")
     assert ps.inst_min.shape[0] > ti.DENSE_A_MAX_INST
     view = torch.from_numpy(camera.get_view(W, H).as_array()).to(dev)
-    cfg = RenderConfig(**{**base, "two_phase": "auto", "tex_mask": tex_kinds_mask(mats_np.tex),
+    cfg = RenderConfig(**{**base, "two_phase": "on", "tex_mask": tex_kinds_mask(mats_np.tex),
                           "mat_features": mat_feature_mask(mats_np),
                           "has_area_lights": bool(lights_np.n_area[0] > 0)})
     cfg_off = dataclasses.replace(cfg, two_phase="off")
@@ -1370,9 +1372,9 @@ def phase8(card, dev, base):
         ("two-phase (K3 + K6)", lambda: ti.twophase_closest_with_fallback(
             ps, o, d, tl, dense=True, **kw))])
     launches, _, acc = ab_samples(card, dev, "heavy scene", [
-        ("off", cfg_off, env), ("auto", cfg, env),
-        ("auto, RFW_TP_SHADOW=1 RFW_DENSE_ITEMS=1", cfg, tiers)],
-        sample, counted="auto, RFW_TP_SHADOW=1 RFW_DENSE_ITEMS=1", n=HEAVY_SPP)
+        ("off", cfg_off, env), ("on", cfg, env),
+        ("on, RFW_TP_SHADOW=1 RFW_DENSE_ITEMS=1", cfg, tiers)],
+        sample, counted="on, RFW_TP_SHADOW=1 RFW_DENSE_ITEMS=1", n=HEAVY_SPP)
     log(card, f"phase 8 counted render: mean radiance {(acc / HEAVY_SPP).mean().item():.6f}")
     for k in ("closest", "occluded", "entries", "items_closest", "items_occluded",
               "dense_closest", "dense_occluded"):
@@ -1720,8 +1722,9 @@ def phase10(card, dev, parts, scene_np, lights_np, camera):
     Mesh3D.view(), instances, materials, textures, the spot, sun and
     area-light views, the camera), with phase 5's settings and the default
     two_phase="auto". Checks: the first synchronize packs build_scene's
-    arenas field for field; the first frame launched K1, K2 and K3 (launch
-    counters reset just before it, read just after); its HDR frame equals
+    arenas field for field; the first frame launched K1 and K2 and no K3
+    (on the card "auto" traces the bounce rays by K1; launch counters reset
+    just before it, read just after); its HDR frame equals
     render_sample at sample_index 0 on the backend's own tensors;
     tonemap(fxaa=True) on the card agrees with the CPU on the same
     accumulator. Then 4 progressive frames, a motion sync of the 256
@@ -1780,8 +1783,9 @@ def phase10(card, dev, parts, scene_np, lights_np, camera):
     launches = read_launches()
     log(card, f"backend first frame: {be.stats['render_ms'].last():.2f} ms, launches "
               f"{launches}")
-    for k in ("closest", "occluded", "items_closest"):
+    for k in ("closest", "occluded"):
         assert launches[k] > 0, f"TorchBackend.render never launched {k}"
+    assert launches["items_closest"] == 0, "TorchBackend.render took the two-phase route"
     assert frame.shape == (H, W, 4) and frame.dtype == np.uint8
     hdr = be.hdr_frame()
     cfg = RenderConfig(max_bounces=BOUNCES, clamp=20.0, sky_intensity=0.35, sampler="sobol",
@@ -2084,8 +2088,9 @@ def phase11(card, dev, parts, scene_np, camera) -> dict:
               f"{syncs[0][1]:.2f} ms of it in TorchBackend.synchronize (BLAS builds, pack, "
               f"upload), Scene.synchronize's own host work {syncs[0][0] - syncs[0][1]:.2f} ms")
     log(card, f"first frame through run_windowed: launches {launches}")
-    for k in ("closest", "occluded", "items_closest"):
+    for k in ("closest", "occluded"):
         assert launches[k] > 0, f"the app's first frame never launched {k}"
+    assert launches["items_closest"] == 0, "the app's first frame took the two-phase route"
     frame = win.last_frame
     assert frame.shape == (H, W, 4) and frame.dtype == np.uint8 and frame[..., :3].std() > 1.0
     for i, (ms, render_ms, mrays) in enumerate(win.frames):
@@ -2377,8 +2382,9 @@ def phase12a(card, parts, camera, settings):
                     launches = read_launches()
                     device_uploads = sum(uploads)
     log(card, f"first dynamic frame (device route): launches {launches}")
-    for kind in ("closest", "occluded", "items_closest"):
+    for kind in ("closest", "occluded"):
         assert launches[kind] > 0, f"the first dynamic frame never launched {kind}"
+    assert launches["items_closest"] == 0, "the first dynamic frame took the two-phase route"
     assert routes == Counter(_apply_device_dynamics=DYN_FRAMES), \
         f"the dynamic syncs took the routes {dict(routes)}"
     assert dev_be._scene_host is host_before, "a dynamic sync repacked"
@@ -2592,7 +2598,7 @@ def phase12d(card, dev, scene, mats, atlas, lights, view, base):
     from rfw_tpu_torch.render import threefry
     from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
 
-    cfg_r = RenderConfig(**{**base, "two_phase": "auto", "sampler": "random"})
+    cfg_r = RenderConfig(**{**base, "two_phase": "on", "sampler": "random"})
     cfg_s = dataclasses.replace(cfg_r, sampler="sobol")
     key = threefry.fold_in(threefry.PRNGKey(42), 0)
     drawn = []
@@ -2737,12 +2743,12 @@ def match_hits(full: dict, strips: dict) -> dict:
 def phase13a(card, scene, mats, atlas, lights, view, base):
     """Strips in turn: the 1080p frame as four row0 strips of 270 rows, one
     after another, against the full frame (phase 5's settings,
-    two_phase="auto", Sobol): differing pixels, each strip ray matched to
+    two_phase="on", Sobol): differing pixels, each strip ray matched to
     the full frame's (exact-t ties counted); the strips' time against one
     full-frame sample; the launches of one strip's counted run."""
     from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
 
-    cfg = RenderConfig(**{**base, "two_phase": "auto"})
+    cfg = RenderConfig(**{**base, "two_phase": "on"})
     hs = H // N_STRIPS
 
     def full():
@@ -2810,7 +2816,7 @@ def phase13b(card, dev, scene, mats, atlas, lights, view, base):
     from rfw_tpu_torch.render import threefry
     from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
 
-    sob = RenderConfig(**{**base, "two_phase": "auto"})
+    sob = RenderConfig(**{**base, "two_phase": "on"})
     rnd = dataclasses.replace(sob, sampler="random")
     key = threefry.fold_in(threefry.PRNGKey(SEED), 13)
     args = (scene, mats, atlas, lights, view, key, W, H)
@@ -3077,7 +3083,7 @@ def phase14b(card, dev, scene, mats, atlas, lights, camera, base) -> dict:
     from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample, resolve_traversal
 
     view = torch.from_numpy(camera.get_view(TIER_W, TIER_H).as_array()).to(dev)
-    kw = {**base, "two_phase": "auto"}
+    kw = {**base, "two_phase": "on"}
 
     def frame(traversal, s=1):
         return render_sample(scene, mats, atlas, lights, view, TIER_W, TIER_H,
@@ -3192,7 +3198,7 @@ def phase14(card, dev, parts, flagship_np, camera, scene, mats, atlas, lights, b
     t_phase = time.perf_counter()
     a = phase14a(card, dev, parts, flagship_np, camera, base, native_build)
     b = phase14b(card, dev, scene, mats, atlas, lights, camera, base)
-    c = phase14c(card, ps, tp_rays, RenderConfig(**{**base, "two_phase": "auto"}))
+    c = phase14c(card, ps, tp_rays, RenderConfig(**{**base, "two_phase": "on"}))
     phase14d(card, dev, a["heavy_scene"])
     log(card, f"phase 14: {time.perf_counter() - t_phase:.2f} s")
     return dict(tiers=b["launches"], twophase_call=c["launches"])
@@ -3203,7 +3209,7 @@ BENCH_REPEATS = 3
 BENCH_ARGV = ("--width", W, "--height", H, "--spp", SPP, "--repeats", BENCH_REPEATS)
 #: the kernels' launches a bench sample makes, as phases 10-14 found them
 BENCH_LAUNCHES = {"off": {"closest": 2, "occluded": 2},
-                  "auto": {"closest": 2, "occluded": 2, "items_closest": 1}}
+                  "on": {"closest": 2, "occluded": 2, "items_closest": 1}}
 #: the layer tools at the reference tools' default sizes, with the flags
 #: that reach every call they time
 TOOL_RUNS = (("bisect_e2e", ()), ("profile_e2e", ()),
@@ -3216,15 +3222,15 @@ ANIM_ARGV = ("--size", "64x36", "--frames", 2, "--no-pica")
 
 def phase15a(card) -> dict:
     """`python -m rfw_tpu_torch.bench` at 1920x1080, 8 samples, 3 repeats,
-    with two_phase "off" and "auto": each line parsed, a positive value
+    with two_phase "off" and "on": each line parsed, a positive value
     and a finite film, and the launches of the whole run (counters reset
     just before it, read just after) a sample as BENCH_LAUNCHES says.
-    Returns the "auto" run's launches."""
+    Returns the "on" run's launches."""
     from rfw_tpu_torch import bench
 
     n_samples = 1 + SPP * BENCH_REPEATS  # the warm-up and the timed loops
     out = {}
-    for mode in ("off", "auto"):
+    for mode in ("off", "on"):
         torch.cuda.synchronize()
         reset_launches()
         line = run_tool(card, bench.main, [*BENCH_ARGV, "--two-phase", mode])
@@ -3241,7 +3247,7 @@ def phase15a(card) -> dict:
         assert per_sample == BENCH_LAUNCHES[mode], \
             f"two_phase={mode}: launches a sample {per_sample}"
         out[mode] = launches
-    return out["auto"]
+    return out["on"]
 
 
 def phase15b(card) -> None:
@@ -3297,7 +3303,7 @@ def phase15c(card) -> None:
 
 def phase15(card) -> dict:
     """The measurement entry point, its layer tools and the animated
-    example on the card. Returns the launches of the "auto" bench run."""
+    example on the card. Returns the launches of the "on" bench run."""
     t_phase = time.perf_counter()
     launches = phase15a(card)
     phase15b(card)
@@ -3310,7 +3316,7 @@ def phase15(card) -> dict:
 WIDE = (16, 32)
 #: the bench's runs of phase 16 (c): `python -m rfw_tpu_torch.bench` under
 #: each RFW_WIDE_ARITY, then at arity 8 under each other RFW_SORT_KEY, with
-#: "off" and "auto" each
+#: "off" and "on" each
 WIDE_BENCH_ARGV = ("--width", W, "--height", H, "--spp", SPP, "--repeats", 1)
 WIDE_BENCH_RUNS = (*((dict(RFW_WIDE_ARITY=str(a)) for a in (8, *WIDE))),
                    *(dict(RFW_SORT_KEY=k) for k in ("morton", "mortonoct", "instance")))
@@ -3444,13 +3450,13 @@ def phase16a(card, dev, arity, flagship, heavy_build, main_calls, tp, heavy) -> 
 
 def phase16_counted(card, dev, arity, tensors, mats, atlas, lights, view, base) -> dict:
     """The wide main path's counted run: one 1080p sample on the flagship
-    at `arity` with two_phase="auto", RFW_TP_SHADOW=1 and phase A by K4
+    at `arity` with two_phase="on", RFW_TP_SHADOW=1 and phase A by K4
     (the dense-scan gate forced to 0), so that K1, K2, K4, K3 and K5 each
     launch (launch counters reset just before it, read just after)."""
     from rfw_tpu_torch.ops import traverse_items as ti
     from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
 
-    cfg = RenderConfig(**{**base, "two_phase": "auto"})
+    cfg = RenderConfig(**{**base, "two_phase": "on"})
     with env(RFW_TP_SHADOW="1"), patched(ti, DENSE_A_MAX_INST=0):
         render_sample(tensors[0], mats, atlas, lights, view, W, H, cfg, sample_index=200)
         torch.cuda.synchronize()
@@ -3458,7 +3464,7 @@ def phase16_counted(card, dev, arity, tensors, mats, atlas, lights, view, base) 
         out = render_sample(tensors[0], mats, atlas, lights, view, W, H, cfg, sample_index=201)
         torch.cuda.synchronize()
         launches = read_launches()
-    log(card, f"phase 16 counted sample, {arity}-wide flagship (two_phase auto, RFW_TP_SHADOW=1, "
+    log(card, f"phase 16 counted sample, {arity}-wide flagship (two_phase on, RFW_TP_SHADOW=1, "
               f"phase A by K4): launches {launches}, mean radiance "
               f"{out.radiance.mean().item():.6f}")
     assert bool(torch.isfinite(out.radiance).all()) and out.radiance.mean().item() > 0
@@ -3679,7 +3685,7 @@ def phase16(card, dev, built, main_calls, tp, heavy, parts, camera, tensors, bas
     keys_ms = phase16_sort_keys(card, dev, scene, mats, atlas, lights, view, base, ps)
     bench = bench_subprocesses(card, "phase 16 (c)", WIDE_BENCH_ARGV,
                                [(extra, mode, ()) for extra in WIDE_BENCH_RUNS
-                                for mode in ("off", "auto")])
+                                for mode in ("off", "on")])
     phase16_backend(card, dev, parts, camera, base)
     log(card, f"phase 16: {time.perf_counter() - t_phase:.2f} s")
     return dict(entries=entries, keys_ms=keys_ms, bench=bench)
@@ -3687,10 +3693,10 @@ def phase16(card, dev, built, main_calls, tp, heavy, parts, camera, tensors, bas
 
 # ------------------------------------------------------------------ phase 17
 #: the bench's A/B runs of phase 17 (b): RFW_COMPACTION 1 and 0 with
-#: two_phase "off" and "auto", then RFW_DEEP_LADDER 1 and 0 at 3 bounces
+#: two_phase "off" and "on", then RFW_DEEP_LADDER 1 and 0 at 3 bounces
 #: (where the ladder has its sub-floor rungs) with "off"
 COMPACTION_BENCH_RUNS = (
-    *((dict(RFW_COMPACTION=c), mode, ()) for c in ("1", "0") for mode in ("off", "auto")),
+    *((dict(RFW_COMPACTION=c), mode, ()) for c in ("1", "0") for mode in ("off", "on")),
     *((dict(RFW_DEEP_LADDER=lad), "off", ("--bounces", 3)) for lad in ("1", "0")))
 #: bench_nee in its default mode, then its sweep at one light count on
 #: each side of POTENTIAL_MAX's default 16
@@ -3731,13 +3737,13 @@ def host_reads():
 
 def phase17a(card, dev, scene, mats, atlas, lights, view, base) -> dict:
     """RFW_COMPACTION=0 on the flagship at 1080p, two_phase "off" then
-    "auto": no host read of a live count (the compacted sample makes two
+    "on": no host read of a live count (the compacted sample makes two
     `_pick_prefix` calls and the vertex-0 sort), the Sobol HDR frame equal
     to the compacted one per pixel within the wavefront tolerance, and,
     under "off", K1/K2 against their plain versions on the captured
     uncompacted calls (every lane of the frame, dead ones included; the
     primaries are phase 5's); then ms per sample compacted against
-    uncompacted in turns, the uncompacted "auto" run counted. Returns the
+    uncompacted in turns, the uncompacted "on" run counted. Returns the
     compared rows by kind and that run's launches."""
     from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
 
@@ -3749,7 +3755,7 @@ def phase17a(card, dev, scene, mats, atlas, lights, view, base) -> dict:
 
     rows = defaultdict(list)
     cfgs = {}
-    for mode in ("off", "auto"):
+    for mode in ("off", "on"):
         cfg = cfgs[mode] = RenderConfig(**{**base, "two_phase": mode})
         with host_reads() as on:
             ref = sample(cfg, 7).radiance
@@ -3784,17 +3790,17 @@ def phase17a(card, dev, scene, mats, atlas, lights, view, base) -> dict:
             del calls
     launches, _, _ = ab_samples(card, dev, "flagship scene, compaction on and off", [
         ("compacted, off", cfgs["off"], env), ("RFW_COMPACTION=0, off", cfgs["off"], uncompacted),
-        ("compacted, auto", cfgs["auto"], env),
-        ("RFW_COMPACTION=0, auto", cfgs["auto"], uncompacted)],
-        sample, counted="RFW_COMPACTION=0, auto")
-    for k in BENCH_LAUNCHES["auto"]:
+        ("compacted, on", cfgs["on"], env),
+        ("RFW_COMPACTION=0, on", cfgs["on"], uncompacted)],
+        sample, counted="RFW_COMPACTION=0, on")
+    for k in BENCH_LAUNCHES["on"]:
         assert launches[k] > 0, f"the uncompacted two-phase path never launched {k}"
     return dict(rows=rows, launches=launches)
 
 
 def phase17b(card) -> list:
     """The bench as subprocesses under RFW_COMPACTION 1 and 0 ("off",
-    "auto") and RFW_DEEP_LADDER 1 and 0 (3 bounces, "off"): each run
+    "on") and RFW_DEEP_LADDER 1 and 0 (3 bounces, "off"): each run
     launches the kinds its path needs, and no other."""
     lines = bench_subprocesses(card, "phase 17 (b)", BENCH_ARGV, COMPACTION_BENCH_RUNS)
     for run in lines:
@@ -3996,7 +4002,8 @@ def textures_on_card(card, dev) -> dict:
     TorchBackend: both textures' mip 0, on the host and in the card's atlas,
     equal the committed 64x64 arrays Pillow's bilinear resize made; one
     frame, launch counters reset just before it and read just after, must
-    launch K1, K2 and K3 and be finite and non-zero; (c) host decode ms per
+    launch K1 and K2 and no K3 (the bounce rays by K1 under "auto" on the
+    card) and be finite and non-zero; (c) host decode ms per
     megapixel of a 2048x2048 PNG written here by utils/png.py and of the
     committed 1024x1024 JPEG. Returns (b)'s launches."""
     import hashlib
@@ -4060,8 +4067,9 @@ def textures_on_card(card, dev) -> dict:
               f"{frame_ms:.2f} ms, launches {launches}, mean radiance {hdr.mean():.6f}, "
               f"mean 8-bit value {frame[..., :3].mean():.3f}")
     assert np.isfinite(hdr).all() and hdr.mean() > 0 and frame[..., :3].max() > 0
-    for k in ("closest", "occluded", "items_closest"):
+    for k in ("closest", "occluded"):
         assert launches[k] > 0, f"the textured glTF's frame never launched {k}"
+    assert launches["items_closest"] == 0, "the textured glTF's frame took the two-phase route"
 
     # ---- (c) host decode time per megapixel
     rng = np.random.default_rng(SEED)

@@ -32,11 +32,13 @@ set for a TPU, not a figure of this card.
 
 `--two-phase` is the counterpart of the reference's RFW_TWO_PHASE for
 this entry point: "off" traces every ray with the classic kernel (K1/K2),
-"auto" (the default, as in `bench.py`) the bounce rays' closest hits
-through the two-phase path (K3 and a K1 retrace). Without `--device cpu`
-it runs on the card and raises where there is none; on the CPU the plain
-versions run and the numbers are host-clock times of the CPU, not of a
-card.
+"on" the bounce rays' closest hits through the two-phase path (K3 and a
+K1 retrace), and "auto" (the default, as in `bench.py`) takes the
+two-phase path on the CPU and the classic kernel on the card, where it is
+the faster route, so there "auto" and "off" run the same program.
+Without `--device cpu` it runs on the card and raises where there is
+none; on the CPU the plain versions run and the numbers are host-clock
+times of the CPU, not of a card.
 """
 
 from __future__ import annotations

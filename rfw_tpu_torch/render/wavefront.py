@@ -33,14 +33,15 @@ three tiers:
   * the kernel tier — "auto", "pallas" and "pallas_hbm": `ops.traverse.
     closest_hit` / `occluded`, which launch the CUDA kernels (K1/K2) for
     tensors on the card and run their plain torch walks for tensors on the
-    CPU. `two_phase="auto"` or `"on"` traces the bounce rays' closest hits
-    through the two-phase path (`ops.traverse_items.
+    CPU. `two_phase="on"`, and `"auto"` on the CPU, traces the bounce
+    rays' closest hits through the two-phase path (`ops.traverse_items.
     twophase_closest_with_fallback`: instance entries, per-instance BLAS
     walks by K3, classic retrace of truncated rays), and `RFW_TP_SHADOW=1`
-    their shadow rays through its any-hit twin; primaries and vertex-0
-    shadows stay on the classic kernel. `RFW_DENSE_ITEMS=1` turns on the
-    dense items tier inside it. On the card the treelets are read from
-    global memory for both Pallas names;
+    their shadow rays through its any-hit twin; on the card `"auto"` keeps
+    them on the classic kernel, which is faster there (`_bounce_two_phase`);
+    primaries and vertex-0 shadows stay on the classic kernel.
+    `RFW_DENSE_ITEMS=1` turns on the dense items tier inside it. On the
+    card the treelets are read from global memory for both Pallas names;
   * the packet tier — "packet": `render.packet` (tiles sharing one stack);
   * the lockstep tier — "lockstep", and "packet" when no tile width
     divides R: `render.intersect.bvh_closest_hit` / `bvh_occluded`, the
@@ -51,10 +52,11 @@ pixel-block swizzle, the bounce sort and the compaction use the tile
 width, which is PALLAS_LANES (1,024) for "pallas" and "pallas_hbm" when R
 is a multiple of it and the first of (config.lanes, 512, 256, 128, 64,
 32) that divides R otherwise; "lockstep" keeps lanes in pixel order, with
-no swizzle, no sort and no compaction. Two-phase runs for "auto", and for
-the Pallas names at R a multiple of PALLAS_LANES; at other R the JAX
-package traces the Pallas names with its packet tier, and the port keeps
-them on the kernels in that tier's lane order with two-phase off. Under
+no swizzle, no sort and no compaction. Two-phase may run (as
+`_bounce_two_phase` decides) for "auto", and for the Pallas names at R a
+multiple of PALLAS_LANES; at other R the JAX package traces the Pallas
+names with its packet tier, and the port keeps them on the kernels in
+that tier's lane order with two-phase off. Under
 the random sampler the lane order decides which pixel draws which
 numbers, so each name renders the same image as the JAX package's.
 """
@@ -180,11 +182,12 @@ class RenderConfig:
     sort_secondary: bool = True  # re-sort bounce rays by (direction
     #   octant, origin Morton code), dead lanes last
     two_phase: str = "auto"  # "auto" | "on" | "off": in the kernel tier,
-    #   bounce rays' closest hits go through the two-phase path
+    #   "on" sends bounce rays' closest hits through the two-phase path
     #   (instance entries, per-instance BLAS walks, classic retrace of
-    #   truncated rays); "off" traces every ray with the classic kernel.
-    #   RFW_TWO_PHASE, read at each call, overrides it where set: "1" on,
-    #   anything else off (rfw_tpu's meaning)
+    #   truncated rays); "off" traces every ray with the classic kernel;
+    #   "auto" is "on" for a scene on the CPU (rfw_tpu's meaning) and "off"
+    #   for a scene on the card. RFW_TWO_PHASE, read at each call, overrides
+    #   it where set: "1" on, anything else off (rfw_tpu's meaning)
     has_area_lights: bool = True  # the scene has area lights (else the
     #   NEE<->BSDF MIS machinery is skipped)
     compaction: str = "auto"  # "auto" | "off": bounce vertices run on the
@@ -817,13 +820,29 @@ def resolve_traversal(config: RenderConfig, R: int) -> Tier:
     return Tier("packet", lanes, False) if lanes else Tier("lockstep", 0, False)
 
 
+def _bounce_two_phase(config: RenderConfig, tier: Tier, device: torch.device) -> bool:
+    """Whether a tier traces bounce rays' closest hits through the two-phase
+    path for a scene on `device`: where the tier allows it, RFW_TWO_PHASE
+    decides where set ("1" on, anything else off), else `two_phase`, whose
+    "auto" means on for a CPU scene (rfw_tpu's meaning) and off on the card,
+    where the classic kernel K1 traces bounce rays several times faster
+    than phase A, the item walks, the merge and the fallback together."""
+    if not tier.two_phase:
+        return False
+    if os.environ.get("RFW_TWO_PHASE") is not None:
+        return os.environ["RFW_TWO_PHASE"] == "1"
+    if config.two_phase == "auto":
+        return device.type != "cuda"
+    return config.two_phase == "on"
+
+
 def _tracers(scene, config: RenderConfig, tier: Tier):
     """(closest, occluded, bounce closest, bounce occluded) trace functions
-    of (ray_o, ray_d, t_limit) for a tier. Where the tier allows it, the
-    kernels trace bounce rays' closest hits through the two-phase path when
-    `two_phase` is "auto" or "on" (RFW_TWO_PHASE, where set, decides
-    instead: "1" on, anything else off), and their shadow rays too with
-    RFW_TP_SHADOW=1."""
+    of (ray_o, ray_d, t_limit) for a tier, and whether the bounce closest
+    is the kernel tier's classic `closest_hit` (K1 on the card). The
+    kernels trace bounce rays' closest hits through the two-phase path
+    where `_bounce_two_phase` says so for the scene's device, and their
+    shadow rays too with RFW_TP_SHADOW=1."""
     lanes = tier.lanes
     if tier.trace == "lockstep":
         def closest(o, d, tl):
@@ -832,7 +851,7 @@ def _tracers(scene, config: RenderConfig, tier: Tier):
         def occl(o, d, tl):
             return bvh_occluded(scene, o, d, tl)
 
-        return closest, occl, closest, occl
+        return closest, occl, closest, occl, False
     if tier.trace == "packet":
         pps = prepare_packet_scene(scene)
 
@@ -842,7 +861,7 @@ def _tracers(scene, config: RenderConfig, tier: Tier):
         def occl(o, d, tl):
             return packet_occluded(pps, o, d, tl, lanes=lanes)
 
-        return closest, occl, closest, occl
+        return closest, occl, closest, occl, False
     ps = prepare_scene(scene)
 
     def closest(o, d, tl):
@@ -851,20 +870,19 @@ def _tracers(scene, config: RenderConfig, tier: Tier):
     def occl(o, d, tl):
         return occluded(ps, o, d, tl)
 
-    bounce, occl_bounce = closest, occl
-    use_tp = config.two_phase in ("auto", "on")
-    if os.environ.get("RFW_TWO_PHASE") is not None:
-        use_tp = os.environ["RFW_TWO_PHASE"] == "1"
-    if tier.two_phase and use_tp:
-        def bounce(o, d, tl):
-            return twophase_closest_with_fallback(
-                ps, o, d, tl, K=config.tp_K, items_per_ray=config.tp_items_per_ray)
+    if not _bounce_two_phase(config, tier, ps.nodes.device):
+        return closest, occl, closest, occl, True
 
-        if os.environ.get("RFW_TP_SHADOW", "0") == "1":
-            def occl_bounce(o, d, tl):
-                return twophase_occluded_with_fallback(
-                    ps, o, d, tl, K=config.tp_K, items_per_ray=config.tp_items_per_ray)
-    return closest, occl, bounce, occl_bounce
+    def bounce(o, d, tl):
+        return twophase_closest_with_fallback(
+            ps, o, d, tl, K=config.tp_K, items_per_ray=config.tp_items_per_ray)
+
+    occl_bounce = occl
+    if os.environ.get("RFW_TP_SHADOW", "0") == "1":
+        def occl_bounce(o, d, tl):
+            return twophase_occluded_with_fallback(
+                ps, o, d, tl, K=config.tp_K, items_per_ray=config.tp_items_per_ray)
+    return closest, occl, bounce, occl_bounce, False
 
 
 def render_sample(
@@ -908,8 +926,8 @@ def render_sample(
         inst_table = _inst_table(scene)
         tier = resolve_traversal(config, R)
         tile_lanes = tier.lanes
-        trace_closest, trace_occluded, trace_bounce, trace_occluded_bounce = _tracers(
-            scene, config, tier)
+        (trace_closest, trace_occluded, trace_bounce, trace_occluded_bounce,
+         classic_bounce) = _tracers(scene, config, tier)
 
         sw = _block_swizzle(width, height, tile_lanes, dev) if tile_lanes else None
         if sw is not None:
@@ -1209,6 +1227,7 @@ def render_sample(
 
         def bounce_vertex(st: _PathState, depth: int, last: bool) -> _PathState:
             with trace.span(f"rfw.bounce.{depth}"):
+                trace.count("route.classic_bounce", int(classic_bounce))
                 if do_sort:
                     st = _sort_state(st)
                 if len(sizes) == 1:

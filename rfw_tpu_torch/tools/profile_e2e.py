@@ -9,7 +9,9 @@ host clock around synchronized calls. The stages' sum is not the sample's
 time (the sample shades only its live lanes), but their order says what
 to attack. Stages:
 
-  render_sample(1b)  one whole sample (1 bounce, Sobol, clamp 100)
+  render_sample(1b)  one whole sample (1 bounce, Sobol, clamp 100,
+                     two_phase="on": the reference tool's two-phase
+                     bounce, which "auto" takes only on the CPU)
   trace_primary      K1 on the coherent primaries
   trace_occluded     K2 from the first hits toward a fixed direction
   sort_pair          the bounce sort (the key RFW_SORT_KEY selects,
@@ -78,8 +80,8 @@ def main(argv=None) -> dict:
         results[name] = min(clock(fn, args.reps, dev))
         print(f"[{card}] {name:28s} {results[name]:9.4f} ms", file=sys.stderr)
 
-    # one whole sample, the reference tool's config
-    cfg = RenderConfig(max_bounces=1, clamp=100.0, sampler="sobol",
+    # one whole sample, the reference tool's config and route
+    cfg = RenderConfig(max_bounces=1, clamp=100.0, sampler="sobol", two_phase="on",
                        tex_mask=tex_kinds_mask(mats.tex),
                        has_area_lights=bool(lights.n_area[0] > 0))
     timed("render_sample(1b)", lambda: render_sample(

@@ -36,6 +36,9 @@ Spans of traversal, around each kernel call's host side:
   rfw.trace.phase_b   pack, K3/K5/K6 and the merge of a two-phase call
   rfw.trace.fallback  the retrace of truncated rays through K1/K2
 
+(The last three run only where bounce rays take the two-phase route: on
+the CPU, and on the card under two_phase="on" or RFW_TWO_PHASE=1.)
+
 Spans of blocking host reads, `rfw.wait.<site>`:
 
   rfw.wait.v0_hits        render_sample: vertex 0's hit count (.item())
@@ -69,6 +72,12 @@ host already holds:
                  floor (`_prefix_sizes` at max_bounces >= 3,
                  `_pick_prefix`; render_sample's `bounce_vertex`): 0
                  under RFW_DEEP_LADDER=0 and at fewer than 3 bounces
+  route.classic_bounce
+                 bounce vertices whose closest hits the kernel tier's
+                 classic walk traced (`ops.traverse.closest_hit`, K1 on
+                 the card; render_sample's `bounce_vertex`): max_bounces
+                 a frame on the card under two_phase="auto", 0 where the
+                 two-phase route ran (and in the lockstep and packet tiers)
   tp.truncated   rays a two-phase call could not decide (the nonzero of
                  its truncated or undecided mask)
   tp.retraced    those of them retraced through K1/K2, at most the
