@@ -3715,7 +3715,7 @@ PROFILE_DYNAMICS_ARGV = ("--no-pica",)
 def host_reads():
     """Count render_sample's host reads of a live count: the calls of
     `_pick_prefix` (the bounce vertex's and vertex 0's prefix lengths) and
-    the vertex-0 compaction sort (a torch.sort called from render_sample
+    the vertex-0 compaction sort (a torch.sort called from `_vertex0`
     itself; the bounce sort runs in `_sort_state`)."""
     from rfw_tpu_torch.render import wavefront as wf
 
@@ -3727,7 +3727,7 @@ def host_reads():
         return pick(sizes, live)
 
     def counted_sort(*a, **k):
-        if sys._getframe(1).f_code.co_name == "render_sample":
+        if sys._getframe(1).f_code.co_name == "_vertex0":
             reads["vertex-0 sort"] += 1
         return sort(*a, **k)
 

@@ -65,7 +65,8 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from functools import partial
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -836,53 +837,454 @@ def _bounce_two_phase(config: RenderConfig, tier: Tier, device: torch.device) ->
     return config.two_phase == "on"
 
 
-def _tracers(scene, config: RenderConfig, tier: Tier):
-    """(closest, occluded, bounce closest, bounce occluded) trace functions
-    of (ray_o, ray_d, t_limit) for a tier, and whether the bounce closest
-    is the kernel tier's classic `closest_hit` (K1 on the card). The
-    kernels trace bounce rays' closest hits through the two-phase path
-    where `_bounce_two_phase` says so for the scene's device, and their
-    shadow rays too with RFW_TP_SHADOW=1."""
-    lanes = tier.lanes
+class Tracers(NamedTuple):
+    """A tier's trace functions of (ray_o, ray_d, t_limit) (`_tracers`)."""
+
+    closest: Callable  # primaries (and the AO probe)
+    occluded: Callable  # vertex-0 shadow rays
+    bounce_closest: Callable
+    bounce_occluded: Callable  # shadow rays of the bounce vertices
+    classic_bounce: bool  # bounce_closest is the kernel tier's `closest_hit`
+
+
+def _tracers(scene, config: RenderConfig, tier: Tier) -> Tracers:
+    """The tier's `Tracers`. The kernels trace bounce rays' closest hits
+    through the two-phase path where `_bounce_two_phase` says so for the
+    scene's device, and their shadow rays too with RFW_TP_SHADOW=1."""
     if tier.trace == "lockstep":
-        def closest(o, d, tl):
-            return bvh_closest_hit(scene, o, d, tl)
-
-        def occl(o, d, tl):
-            return bvh_occluded(scene, o, d, tl)
-
-        return closest, occl, closest, occl, False
-    if tier.trace == "packet":
+        closest, occl = partial(bvh_closest_hit, scene), partial(bvh_occluded, scene)
+    elif tier.trace == "packet":
         pps = prepare_packet_scene(scene)
+        closest = partial(packet_closest_hit, pps, lanes=tier.lanes)
+        occl = partial(packet_occluded, pps, lanes=tier.lanes)
+    else:
+        ps = prepare_scene(scene)
+        closest, occl = partial(closest_hit, ps), partial(occluded, ps)
+        if _bounce_two_phase(config, tier, ps.nodes.device):
+            tp = dict(K=config.tp_K, items_per_ray=config.tp_items_per_ray)
+            occl_bounce = (partial(twophase_occluded_with_fallback, ps, **tp)
+                           if os.environ.get("RFW_TP_SHADOW", "0") == "1" else occl)
+            return Tracers(closest, occl, partial(twophase_closest_with_fallback, ps, **tp),
+                           occl_bounce, False)
+    return Tracers(closest, occl, closest, occl, tier.trace == "kernel")
 
-        def closest(o, d, tl):
-            return packet_closest_hit(pps, o, d, tl, lanes=lanes)
 
-        def occl(o, d, tl):
-            return packet_occluded(pps, o, d, tl, lanes=lanes)
+class _Frame(NamedTuple):
+    """What the vertex steps of one `render_sample` call share, built by
+    `_frame` at the call's start."""
 
-        return closest, occl, closest, occl, False
-    ps = prepare_scene(scene)
+    scene: object  # TraceScene of tensors
+    mats: object  # DeviceMaterials of tensors
+    atlas: TextureAtlas
+    lights: DeviceLights
+    view: torch.Tensor  # (24,) camera vector
+    config: RenderConfig
+    tracers: Tracers
+    camera: Callable  # `camera_rays_c` of the frame's lanes: jitter -> primaries
+    inst_table: torch.Tensor  # (I,21), `_inst_table`
+    pid: torch.Tensor  # (R,) int32 pixel id of each lane before vertex 0
+    pid_base: object  # the strip's first pixel id: lane pid - pid_base = output row
+    sample_index: object
+    k_loop: Optional[torch.Tensor]  # the vertices' threefry key; None: Sobol
+    vertex_keys: dict  # depth -> fold_in(k_loop, depth), filled on first use
+    sky_tex: object
+    total_lights: torch.Tensor
+    scene_box: Tuple[torch.Tensor, torch.Tensor]  # (min, max), the bounce sort's
+    do_sort: bool  # bounce vertices re-sort the state
+    sizes: list  # bounce vertices' prefix ladder ([R]: every lane, no host read)
+    sizes0: list  # vertex 0's, the 1-bounce ladder
 
-    def closest(o, d, tl):
-        return closest_hit(ps, o, d, tl)
 
-    def occl(o, d, tl):
-        return occluded(ps, o, d, tl)
+def _frame(scene, mats, atlas, lights, view, width, height, config, sky_tex,
+           use_sobol, sample_index, key, row0) -> _Frame:
+    """`render_sample`'s plan: the tier and its tracers, the lane order of
+    the pixel-block swizzle and the film strip, the sampler's keys, the
+    compaction ladders."""
+    dev = view.device
+    R = width * height
+    inst_table = _inst_table(scene)
+    tier = resolve_traversal(config, R)
+    tracers = _tracers(scene, config, tier)
+    sw = _block_swizzle(width, height, tier.lanes, dev) if tier.lanes else None
+    if sw is not None:
+        px, py, _ = sw
+        pixel_ids = (px, py)
+        pid = (py * width + px).to(torch.int32)
+    else:
+        pixel_ids = None
+        pid = torch.arange(R, dtype=torch.int32, device=dev)
+    pid_base = 0
+    if not (isinstance(row0, int) and row0 == 0):
+        # the block swizzle ran on the strip's own width x height; offset
+        # py so camera NDC, Sobol keys and pid are the full frame's
+        if pixel_ids is None:
+            px, py = pid % width, pid // width
+        row0 = torch.as_tensor(row0, dtype=torch.int32, device=dev)
+        pixel_ids = (px, py + row0)
+        pid = (pixel_ids[1] * width + px).to(torch.int32)
+        pid_base = row0.long() * width
+    k_cam, k_loop = (None, None) if use_sobol else threefry.split(key)
+    # "lockstep" keeps lanes in pixel order: no sort, no compaction ("packet"
+    # traced by the lockstep tier where no tile width divides R still sorts)
+    do_sort = (config.sort_secondary and config.traversal != "lockstep"
+               and config.max_bounces >= 1)
+    # RFW_COMPACTION=0 (read at each call) traces every lane at every
+    # vertex: no host read of a live count
+    compact_on = (do_sort and config.compaction == "auto"
+                  and os.environ.get("RFW_COMPACTION", "1") == "1")
+    g = max(tier.lanes, 1)
+    return _Frame(
+        scene=scene, mats=mats, atlas=atlas, lights=lights, view=view, config=config,
+        tracers=tracers, inst_table=inst_table, pid=pid, pid_base=pid_base,
+        camera=partial(camera_rays_c, view, width, height, pixel_ids, key=k_cam),
+        sample_index=sample_index, k_loop=k_loop, vertex_keys={}, sky_tex=sky_tex,
+        total_lights=(lights.n_point[0] + lights.n_spot[0] + lights.n_dir[0]
+                      + lights.n_area[0]),
+        scene_box=(scene.tlas_min[0], scene.tlas_max[0]), do_sort=do_sort,
+        sizes=_prefix_sizes(R, g, config.max_bounces) if compact_on else [R],
+        sizes0=_prefix_sizes(R, g) if compact_on else [R],
+    )
 
-    if not _bounce_two_phase(config, tier, ps.nodes.device):
-        return closest, occl, closest, occl, True
 
-    def bounce(o, d, tl):
-        return twophase_closest_with_fallback(
-            ps, o, d, tl, K=config.tp_K, items_per_ray=config.tp_items_per_ray)
+def _uniforms(f: _Frame, slot: int, nu: int, pid_s: torch.Tensor, depth: int = 0,
+              sub: int = 0) -> torch.Tensor:
+    """(n, nu) uniforms: Sobol `slot` per pixel, or threefry per lane from
+    fold_in(fold_in(k_loop, depth), sub) (the JAX package's `kd` of vertex
+    `depth` and its use `sub`)."""
+    if f.k_loop is None:
+        return sample_slot(f.sample_index, pid_s, slot, nu)
+    if depth not in f.vertex_keys:
+        f.vertex_keys[depth] = threefry.fold_in(f.k_loop, depth)
+    return threefry.uniform(threefry.fold_in(f.vertex_keys[depth], sub),
+                            (pid_s.shape[0], nu), device=f.view.device)
 
-    occl_bounce = occl
-    if os.environ.get("RFW_TP_SHADOW", "0") == "1":
-        def occl_bounce(o, d, tl):
-            return twophase_occluded_with_fallback(
-                ps, o, d, tl, K=config.tp_K, items_per_ray=config.tp_items_per_ray)
-    return closest, occl, bounce, occl_bounce, False
+
+def _sky(f: _Frame, dirs: Vec3C) -> Vec3C:
+    """Sky radiance per ray: constant, or an equirectangular skybox."""
+    n, dev = dirs[0].shape[0], f.view.device
+    if f.sky_tex is not None:
+        sky_u = torch.atan2(dirs[2], dirs[0]) / (2.0 * PI) + 0.5
+        sky_v = torch.acos(torch.clamp(dirs[1], -1.0, 1.0)) / PI
+        tex_ids = torch.as_tensor(f.sky_tex, device=dev).reshape(-1)[:1].expand(n)
+        sky_rgb = sample_bilinear(f.atlas, tex_ids, (sky_u, sky_v),
+                                  torch.zeros(n, dtype=torch.float32, device=dev))
+        return tuple(sky_rgb[:, j] * f.config.sky_intensity for j in range(3))
+    const = torch.full((n,), f.config.sky_intensity, dtype=torch.float32, device=dev)
+    return (const, const, const)
+
+
+def _no_hit_aovs(zero: torch.Tensor) -> dict:
+    """The AOVs of lanes without a first hit, from a zero plane of their
+    count: zero albedo, normal and position, depth T_MAX, ao 1."""
+    n, dev = zero.shape[0], zero.device
+    return dict(albedo=(zero, zero, zero), normal=(zero, zero, zero),
+                depth=torch.full((n,), T_MAX, dtype=torch.float32, device=dev),
+                position=(zero, zero, zero),
+                ao=torch.ones(n, dtype=torch.float32, device=dev))
+
+
+def _shade_vertex(f: _Frame, st: _PathState, hit: Optional[Hit], depth: int):
+    """Path vertex `depth` on an n-lane front: vertex 0 (the first hits,
+    whose misses `_vertex0` credited already) takes the AOVs, a bounce
+    vertex (hit None) traces its closest hits first, the final vertex
+    (depth max_bounces) takes no BSDF bounce. Returns (new state, aovs
+    dict at vertex 0, else None)."""
+    config, lights, dev, f32 = f.config, f.lights, f.view.device, torch.float32
+    first, last = depth == 0, depth == config.max_bounces
+    if hit is None:
+        hit = f.tracers.bounce_closest(v3_stack(st.ray_o), v3_stack(st.ray_d),
+                                       torch.where(st.alive, T_MAX, 0.0))
+    n = st.pid.shape[0]
+    found = (hit.prim >= 0) & st.alive
+
+    if not first:
+        radiance = v3_where(
+            st.alive & ~found,
+            v3_add(st.radiance, v3_mul(st.throughput, _sky(f, st.ray_d))),
+            st.radiance,
+        )
+    else:
+        radiance = st.radiance
+
+    # ---- shading point --------------------------------------------------
+    basis = _shading_basis_c(f.scene, hit, st.ray_d, f.inst_table)
+    pos = v3_add(st.ray_o, v3_scale(st.ray_d, hit.t))
+    footprint = hit.t * f.view[16] * basis["lodf"] * 1024.0
+    lod = torch.log2(torch.clamp(footprint, min=1e-6))
+    params, emission, n_ts, emission_base, absorption = _fetch_material_c(
+        f.mats, f.atlas, basis["mat_id"], basis["uv"], lod,
+        basis["entering"], config.tex_mask, config.trilinear,
+    )
+    # Beer-Lambert: a backface hit on a transmissive material ends a
+    # segment travelled inside the medium
+    if config.mat_features & disney.FEAT_TRANSMISSION:
+        inside_seg = found & ~basis["entering"] & (params.transmission > 0)
+        atten = tuple(torch.exp(-absorption[j] * hit.t) for j in range(3))
+        throughput0 = v3_where(inside_seg, v3_mul(st.throughput, atten),
+                               st.throughput)
+    else:
+        throughput0 = st.throughput
+    ns = v3_normalize(tuple(
+        n_ts[0] * basis["tan"][j] + n_ts[1] * basis["bitan"][j]
+        + n_ts[2] * basis["ns"][j]
+        for j in range(3)))
+
+    # ---- AOVs (first hit only) --------------------------------------------
+    aovs = None
+    # one zero plane a vertex, though only vertex 0 with the AOVs off reads it
+    zero = torch.zeros(n, dtype=f32, device=dev)
+    if first and not config.aovs:
+        aovs = _no_hit_aovs(zero)
+    elif first:
+        aov_ao = torch.ones(n, dtype=f32, device=dev)
+        if config.ao_aov:
+            u_ao = _uniforms(f, 4, 3, st.pid, depth, 7)
+            wi_ao = disney.to_world_c(
+                basis["tan"], basis["bitan"], basis["ns"],
+                disney._sample_cosine_c(u_ao[:, 0], u_ao[:, 1]),
+            )
+            occ_ao = f.tracers.occluded(
+                v3_stack(v3_add(pos, v3_scale(basis["ng"], config.shadow_eps))),
+                v3_stack(wi_ao),
+                config.ao_radius,
+            )
+            aov_ao = torch.where(found & occ_ao, 0.0, aov_ao)
+        base_c = params.base_c
+        aovs = dict(
+            albedo=tuple(torch.where(found, base_c[j], 0.0) for j in range(3)),
+            normal=tuple(torch.where(found, ns[j], 0.0) for j in range(3)),
+            depth=torch.where(found, hit.t, T_MAX),
+            position=tuple(torch.where(found, pos[j], 0.0) for j in range(3)),
+            ao=aov_ao,
+        )
+
+    # ---- emissive hits (MIS vs NEE) -----------------------------------------
+    is_emitter = torch.maximum(
+        torch.maximum(emission[0], emission[1]), emission[2]) > 0.0
+    if first or not config.has_area_lights:
+        mis_w = torch.ones(n, dtype=f32, device=dev)
+    else:
+        cos_hit = torch.abs(v3_dot(basis["ng"], st.ray_d))
+        # rebuild the hit emitter's pick probability at the previous
+        # vertex (instance-exact: world_area is the hit instance's)
+        lum_hit = _luminance_c(*emission_base)
+        n_l = torch.clamp(lights.pick_n[0], min=1.0)
+        if lights.light_table.shape[0] <= POTENTIAL_MAX:
+            cvec = v3_sub(basis["centroid_w"], st.ray_o)
+            c_d2 = torch.clamp(v3_dot(cvec, cvec), min=1e-8)
+            cos_c = torch.abs(v3_dot(basis["ng"], cvec)) / torch.sqrt(c_d2)
+            q_hit = lum_hit * basis["world_area"] * cos_c / c_d2
+            hit_pick_p = torch.where(
+                st.pick_norm > 0,
+                0.5 * q_hit / torch.clamp(st.pick_norm, min=1e-12) + 0.5 / n_l,
+                1.0 / n_l,
+            )
+        else:
+            w_hit = lum_hit * basis["world_area"] * PI
+            hit_pick_p = torch.where(
+                lights.pick_w_total[0] > 0,
+                0.5 * w_hit / torch.clamp(lights.pick_w_total[0], min=1e-12)
+                + 0.5 / n_l,
+                1.0 / n_l,
+            )
+        pdf_nee_this = (hit.t * hit.t) / torch.clamp(
+            cos_hit * basis["world_area"], min=1e-8) * hit_pick_p
+        nee_exists = (basis["light_id"] >= 0) & (lights.n_area[0] > 0)
+        mis_w = torch.where(
+            st.spec_or_first | ~nee_exists,
+            1.0,
+            st.prev_bsdf_pdf
+            / torch.clamp(st.prev_bsdf_pdf + pdf_nee_this, min=1e-12),
+        )
+    emit_mask = found & is_emitter
+    radiance = v3_where(
+        emit_mask,
+        v3_add(radiance, v3_scale(v3_mul(throughput0, emission), mis_w)),
+        radiance,
+    )
+
+    alive = found & ~is_emitter
+
+    # ---- local frame ---------------------------------------------------------
+    tan, bitan = basis["tan"], basis["bitan"]
+    wo = disney.to_local_c(tan, bitan, ns, v3_neg(st.ray_d))
+
+    # ---- NEE -----------------------------------------------------------------
+    u_l = _uniforms(f, 2 + depth * 3, 3, st.pid, depth, 1)
+    (wi_l, dist_l, rad_over_pdf, is_delta, pdf_nee_sa,
+     pick_norm) = _sample_light_c(lights, pos, u_l[:, 0], u_l[:, 1],
+                                  u_l[:, 2], ns)
+    wi_local = disney.to_local_c(tan, bitan, ns, wi_l)
+    f_l = disney.disney_eval_c(params, wo, wi_local, config.mat_features)
+    cos_l = torch.clamp(wi_local[2], min=0.0)
+    can_light = alive & (f.total_lights > 0) & (cos_l > 0)
+    shadow_o = v3_add(pos, v3_scale(basis["ng"], config.shadow_eps))
+    # zero-contribution lanes get t_limit 0 and leave at once; bounce
+    # vertices may take the two-phase any hit (RFW_TP_SHADOW=1)
+    occ = (f.tracers.occluded if first else f.tracers.bounce_occluded)(
+        v3_stack(shadow_o), v3_stack(wi_l),
+        torch.where(can_light, dist_l - 2.0 * config.shadow_eps, 0.0))
+    if config.has_area_lights:
+        pdf_b_l = disney.disney_pdf_c(params, wo, wi_local,
+                                      config.mat_features)
+        mis_nee = torch.where(
+            is_delta, 1.0,
+            pdf_nee_sa / torch.clamp(pdf_nee_sa + pdf_b_l, min=1e-12))
+    else:
+        # delta-only lights: NEE is the sole strategy
+        mis_nee = 1.0
+    w_nee = cos_l * mis_nee
+    contrib = tuple(
+        torch.clamp(throughput0[j] * f_l[j] * w_nee * rad_over_pdf[j],
+                    0.0, config.clamp)
+        for j in range(3))
+    radiance = v3_where(can_light & ~occ, v3_add(radiance, contrib), radiance)
+
+    # ---- BSDF bounce (absent at the final vertex) -----------------------------
+    if last:
+        return st._replace(
+            radiance=radiance,
+            throughput=throughput0,
+            alive=torch.zeros_like(alive),
+        ), aovs
+
+    u_b = _uniforms(f, 3 + depth * 3, 3, st.pid, depth, 2)
+    wi_b, f_b, pdf_b, delta_b = disney.disney_sample_c(
+        params, wo, u_b[:, 0], u_b[:, 1], u_b[:, 2], config.mat_features)
+    # transmission samples leave through the lower hemisphere: |cos|
+    ok = alive & (pdf_b > 1e-9) & (torch.abs(wi_b[2]) > 1e-6)
+    wi_world = disney.to_world_c(tan, bitan, ns, wi_b)
+    bsdf_w = torch.abs(wi_b[2]) / torch.clamp(pdf_b, min=1e-9)
+    throughput = v3_where(
+        ok, v3_mul(throughput0, v3_scale(f_b, bsdf_w)), throughput0)
+    # offset the continuation off the surface on the side it leaves
+    side = torch.where(wi_b[2] >= 0, 1.0, -1.0)
+    new_o = v3_where(
+        ok, v3_add(pos, v3_scale(basis["ng"], config.shadow_eps * side)),
+        st.ray_o)
+    new_d = v3_where(ok, wi_world, st.ray_d)
+
+    return st._replace(
+        radiance=radiance,
+        throughput=throughput,
+        alive=ok,
+        spec_or_first=(params.roughness < 0.05) | delta_b,
+        prev_bsdf_pdf=pdf_b,
+        sort_hint=torch.where(found, hit.inst, -1),
+        ray_o=new_o,
+        ray_d=new_d,
+        pick_norm=pick_norm,
+    ), aovs
+
+
+def _shade_live(f: _Frame, st: _PathState, depth: int, hit: Optional[Hit] = None):
+    """Vertex `depth` (`_shade_vertex`; `hit`: vertex 0's closest hits, a
+    bounce vertex traces its own) on the live prefix. Under compaction the
+    host reads the live count, `_pick_prefix` takes the least rung of the
+    vertex's ladder that covers it, and the suffix (all dead) passes through
+    untouched, with the no-hit AOVs at vertex 0. Counts `lanes.shaded` and
+    `lanes.live`; at a bounce vertex `ladder.subfloor`, and from depth 2 on
+    `lanes.shaded.deep` and `lanes.live.deep`. Returns (the state of every
+    lane, aovs dict | None)."""
+    sizes = f.sizes if depth else f.sizes0
+    R = n = st.pid.shape[0]
+    if len(sizes) > 1:
+        with trace.span("rfw.wait.live_count" if depth else "rfw.wait.v0_hits"):
+            live = int(st.alive.sum().item())
+        n = _pick_prefix(sizes, live)
+        trace.count("lanes.shaded", n)
+        trace.count("lanes.live", live)
+        if depth:
+            # a rung below the 1-bounce ladder's floor: the deep ladder's
+            trace.count("ladder.subfloor", int(n < f.sizes0[0]))
+        if depth >= 2:
+            trace.count("lanes.shaded.deep", n)
+            trace.count("lanes.live.deep", live)
+    if n == R:
+        return _shade_vertex(f, st, hit, depth)
+    pre, suf = _tmap(lambda a: a[:n], st), _tmap(lambda a: a[n:], st)
+    new, aovs = _shade_vertex(f, pre, None if hit is None else _tmap(lambda a: a[:n], hit),
+                              depth)
+    st = _tmap(lambda a, b: torch.cat([a, b]), new, suf)
+    if aovs is not None:
+        tail = _no_hit_aovs(torch.zeros(R - n, dtype=torch.float32, device=f.view.device))
+        aovs = _tmap(lambda a, b: torch.cat([a, b]), aovs, tail)
+    return st, aovs
+
+
+def _vertex0(f: _Frame):
+    """Camera rays, their closest hits, sky for the misses, then shading of
+    the hit lanes (under compaction sorted to a hit prefix, the rest passing
+    through). Returns (state, first-hit AOVs in the state's lane order)."""
+    R, dev, f32 = f.pid.shape[0], f.view.device, torch.float32
+    # the jitter is an argument only: it must not outlive the camera call
+    if f.config.pixel_center:
+        ray_o, ray_d = f.camera(jitter=(torch.full((R, 2), 0.5, dtype=f32, device=dev),
+                                        torch.zeros((R, 2), dtype=f32, device=dev)))
+    elif f.k_loop is None:
+        ray_o, ray_d = f.camera(jitter=(_uniforms(f, 0, 2, f.pid), _uniforms(f, 1, 2, f.pid)))
+    else:  # the random sampler draws it from the camera's key
+        ray_o, ray_d = f.camera()
+    hit0 = f.tracers.closest(v3_stack(ray_o), v3_stack(ray_d), T_MAX)
+    found0 = hit0.prim >= 0
+    sky0 = _sky(f, ray_d)
+    rad0 = tuple(torch.where(found0, 0.0, sky0[j]) for j in range(3))
+    alive, pid = found0, f.pid
+    if len(f.sizes0) > 1:
+        # shade only the hit lanes: sort by (hit?, prim block), then shade
+        # the hit prefix at the smallest covering length
+        key0 = torch.where(found0, hit0.prim >> 4, 1 << 30)
+        perm = torch.sort(key0, stable=True).indices
+        hit0, rad0, ray_o, ray_d, pid = _tmap(
+            lambda a: a[perm], (hit0, rad0, ray_o, ray_d, pid))
+        alive = hit0.prim >= 0
+    one = torch.ones(R, dtype=f32, device=dev)
+    st = _PathState(
+        radiance=rad0,
+        throughput=(one, one, one),
+        alive=alive,
+        spec_or_first=torch.ones(R, dtype=torch.bool, device=dev),
+        prev_bsdf_pdf=torch.zeros(R, dtype=f32, device=dev),
+        sort_hint=torch.full((R,), -1, dtype=torch.int32, device=dev),
+        ray_o=ray_o, ray_d=ray_d, pid=pid,
+        pick_norm=torch.zeros(R, dtype=f32, device=dev),
+    )
+    return _shade_live(f, st, 0, hit0)
+
+
+def _sort_state(f: _Frame, st: _PathState) -> _PathState:
+    """Re-sort lanes by SORT_KEY's key, dead last."""
+    skey = sort_key(st.ray_o, st.ray_d, *f.scene_box, st.alive, st.sort_hint)
+    perm = torch.sort(skey, stable=True).indices
+    return _tmap(lambda a: a[perm], st)
+
+
+def _bounce_vertex(f: _Frame, st: _PathState, depth: int) -> _PathState:
+    """Bounce vertex `depth`: the bounce sort, then trace and shade on the
+    live prefix (a host read of the live count picks its length)."""
+    with trace.span(f"rfw.bounce.{depth}"):
+        trace.count("route.classic_bounce", int(f.tracers.classic_bounce))
+        if f.do_sort:
+            st = _sort_state(f, st)
+        return _shade_live(f, st, depth)[0]
+
+
+def _to_pixels(f: _Frame, a: torch.Tensor, lane_pid: torch.Tensor) -> torch.Tensor:
+    """Per-lane values `a` in the output's pixel order."""
+    out = torch.empty_like(a)
+    out[lane_pid - f.pid_base] = a
+    return out
+
+
+def _result(f: _Frame, st: _PathState, aovs: dict, pid0: torch.Tensor) -> SampleResult:
+    """The sample in pixel order: radiance by the lanes' final `pid`, the
+    AOVs by their vertex-0 order `pid0` (constants when AOVs are off)."""
+    out = dict(radiance=torch.clamp(
+        _to_pixels(f, v3_stack(st.radiance), st.pid.long()), min=0.0))
+    for k, v in aovs.items():
+        a = v3_stack(v) if isinstance(v, tuple) else v
+        out[k] = _to_pixels(f, a, pid0) if f.config.aovs else a
+    return SampleResult(**out)
 
 
 def render_sample(
@@ -920,413 +1322,10 @@ def render_sample(
                 "threefry and needs a key")
         if config.two_phase not in ("auto", "on", "off"):
             raise ValueError(f"two_phase={config.two_phase!r}")
-        dev = view.device
-        f32 = torch.float32
-        R = width * height
-        inst_table = _inst_table(scene)
-        tier = resolve_traversal(config, R)
-        tile_lanes = tier.lanes
-        (trace_closest, trace_occluded, trace_bounce, trace_occluded_bounce,
-         classic_bounce) = _tracers(scene, config, tier)
-
-        sw = _block_swizzle(width, height, tile_lanes, dev) if tile_lanes else None
-        if sw is not None:
-            px, py, _ = sw
-            pixel_ids = (px, py)
-            pid = (py * width + px).to(torch.int32)
-        else:
-            pixel_ids = None
-            pid = torch.arange(R, dtype=torch.int32, device=dev)
-        pid_base = 0  # the strip's first pixel id: lane pid - pid_base = output row
-        if not (isinstance(row0, int) and row0 == 0):
-            # the block swizzle ran on the strip's own width x height; offset
-            # py so camera NDC, Sobol keys and pid are the full frame's
-            if pixel_ids is None:
-                px, py = pid % width, pid // width
-            else:
-                px, py = pixel_ids
-            row0 = torch.as_tensor(row0, dtype=torch.int32, device=dev)
-            pixel_ids = (px, py + row0)
-            pid = (pixel_ids[1] * width + px).to(torch.int32)
-            pid_base = row0.long() * width
-
-        if not use_sobol:
-            k_cam, k_loop = threefry.split(key)
-        vertex_keys = {}
-
-        def uniforms(slot, nu, pid_s, depth=0, sub=0):
-            """(n, nu) uniforms: Sobol `slot` per pixel, or threefry per lane
-            from fold_in(fold_in(k_loop, depth), sub) (the JAX package's `kd`
-            of vertex `depth` and its use `sub`)."""
-            if use_sobol:
-                return sample_slot(sample_index, pid_s, slot, nu)
-            if depth not in vertex_keys:
-                vertex_keys[depth] = threefry.fold_in(k_loop, depth)
-            return threefry.uniform(threefry.fold_in(vertex_keys[depth], sub),
-                                    (pid_s.shape[0], nu), device=dev)
-
-        if config.pixel_center:
-            ray_o, ray_d = camera_rays_c(
-                view, width, height, pixel_ids,
-                jitter=(torch.full((R, 2), 0.5, dtype=f32, device=dev),
-                        torch.zeros((R, 2), dtype=f32, device=dev)),
-            )
-        elif use_sobol:
-            ray_o, ray_d = camera_rays_c(
-                view, width, height, pixel_ids,
-                jitter=(uniforms(0, 2, pid), uniforms(1, 2, pid)))
-        else:
-            ray_o, ray_d = camera_rays_c(view, width, height, pixel_ids, key=k_cam)
-
-        total_lights = (
-            lights.n_point[0] + lights.n_spot[0] + lights.n_dir[0] + lights.n_area[0]
-        )
-        scene_mn = scene.tlas_min[0]
-        scene_mx = scene.tlas_max[0]
-        use_potential_pick = lights.light_table.shape[0] <= POTENTIAL_MAX
-
-        # ------------------------------------------------------------ shading
-        def _sky(dirs: Vec3C) -> Vec3C:
-            """Sky radiance per ray: constant, or an equirectangular skybox."""
-            n = dirs[0].shape[0]
-            if sky_tex is not None:
-                sky_u = torch.atan2(dirs[2], dirs[0]) / (2.0 * PI) + 0.5
-                sky_v = torch.acos(torch.clamp(dirs[1], -1.0, 1.0)) / PI
-                tex_ids = torch.as_tensor(sky_tex, device=dev).reshape(-1)[:1].expand(n)
-                sky_rgb = sample_bilinear(atlas, tex_ids, (sky_u, sky_v),
-                                          torch.zeros(n, dtype=f32, device=dev))
-                return tuple(sky_rgb[:, j] * config.sky_intensity for j in range(3))
-            const = torch.full((n,), config.sky_intensity, dtype=f32, device=dev)
-            return (const, const, const)
-
-        def shade_vertex(st: _PathState, hit: Hit, depth: int, first: bool,
-                         last: bool, add_sky: bool = True):
-            """One path vertex on an n-lane front. Returns (new state, aovs
-            dict | None). add_sky=False when misses were credited already."""
-            n = st.pid.shape[0]
-            found = (hit.prim >= 0) & st.alive
-
-            if add_sky:
-                radiance = v3_where(
-                    st.alive & ~found,
-                    v3_add(st.radiance, v3_mul(st.throughput, _sky(st.ray_d))),
-                    st.radiance,
-                )
-            else:
-                radiance = st.radiance
-
-            # ---- shading point ----------------------------------------------
-            basis = _shading_basis_c(scene, hit, st.ray_d, inst_table)
-            pos = v3_add(st.ray_o, v3_scale(st.ray_d, hit.t))
-            footprint = hit.t * view[16] * basis["lodf"] * 1024.0
-            lod = torch.log2(torch.clamp(footprint, min=1e-6))
-            params, emission, n_ts, emission_base, absorption = _fetch_material_c(
-                mats, atlas, basis["mat_id"], basis["uv"], lod,
-                basis["entering"], config.tex_mask, config.trilinear,
-            )
-            # Beer-Lambert: a backface hit on a transmissive material ends a
-            # segment travelled inside the medium
-            if config.mat_features & disney.FEAT_TRANSMISSION:
-                inside_seg = found & ~basis["entering"] & (params.transmission > 0)
-                atten = tuple(torch.exp(-absorption[j] * hit.t) for j in range(3))
-                throughput0 = v3_where(inside_seg, v3_mul(st.throughput, atten),
-                                       st.throughput)
-            else:
-                throughput0 = st.throughput
-            ns = v3_normalize(tuple(
-                n_ts[0] * basis["tan"][j] + n_ts[1] * basis["bitan"][j]
-                + n_ts[2] * basis["ns"][j]
-                for j in range(3)))
-
-            # ---- AOVs (first hit only) ----------------------------------------
-            aovs = None
-            zero = torch.zeros(n, dtype=f32, device=dev)
-            if first and not config.aovs:
-                aovs = dict(
-                    albedo=(zero, zero, zero),
-                    normal=(zero, zero, zero),
-                    depth=torch.full((n,), T_MAX, dtype=f32, device=dev),
-                    position=(zero, zero, zero),
-                    ao=torch.ones(n, dtype=f32, device=dev),
-                )
-            elif first:
-                aov_ao = torch.ones(n, dtype=f32, device=dev)
-                if config.ao_aov:
-                    u_ao = uniforms(4, 3, st.pid, depth, 7)
-                    wi_ao = disney.to_world_c(
-                        basis["tan"], basis["bitan"], basis["ns"],
-                        disney._sample_cosine_c(u_ao[:, 0], u_ao[:, 1]),
-                    )
-                    occ_ao = trace_occluded(
-                        v3_stack(v3_add(pos, v3_scale(basis["ng"], config.shadow_eps))),
-                        v3_stack(wi_ao),
-                        config.ao_radius,
-                    )
-                    aov_ao = torch.where(found & occ_ao, 0.0, aov_ao)
-                base_c = params.base_c
-                aovs = dict(
-                    albedo=tuple(torch.where(found, base_c[j], 0.0) for j in range(3)),
-                    normal=tuple(torch.where(found, ns[j], 0.0) for j in range(3)),
-                    depth=torch.where(found, hit.t, T_MAX),
-                    position=tuple(torch.where(found, pos[j], 0.0) for j in range(3)),
-                    ao=aov_ao,
-                )
-
-            # ---- emissive hits (MIS vs NEE) ---------------------------------
-            is_emitter = torch.maximum(
-                torch.maximum(emission[0], emission[1]), emission[2]) > 0.0
-            if first or not config.has_area_lights:
-                mis_w = torch.ones(n, dtype=f32, device=dev)
-            else:
-                cos_hit = torch.abs(v3_dot(basis["ng"], st.ray_d))
-                # rebuild the hit emitter's pick probability at the previous
-                # vertex (instance-exact: world_area is the hit instance's)
-                lum_hit = _luminance_c(*emission_base)
-                n_l = torch.clamp(lights.pick_n[0], min=1.0)
-                if use_potential_pick:
-                    cvec = v3_sub(basis["centroid_w"], st.ray_o)
-                    c_d2 = torch.clamp(v3_dot(cvec, cvec), min=1e-8)
-                    cos_c = torch.abs(v3_dot(basis["ng"], cvec)) / torch.sqrt(c_d2)
-                    q_hit = lum_hit * basis["world_area"] * cos_c / c_d2
-                    hit_pick_p = torch.where(
-                        st.pick_norm > 0,
-                        0.5 * q_hit / torch.clamp(st.pick_norm, min=1e-12) + 0.5 / n_l,
-                        1.0 / n_l,
-                    )
-                else:
-                    w_hit = lum_hit * basis["world_area"] * PI
-                    hit_pick_p = torch.where(
-                        lights.pick_w_total[0] > 0,
-                        0.5 * w_hit / torch.clamp(lights.pick_w_total[0], min=1e-12)
-                        + 0.5 / n_l,
-                        1.0 / n_l,
-                    )
-                pdf_nee_this = (hit.t * hit.t) / torch.clamp(
-                    cos_hit * basis["world_area"], min=1e-8) * hit_pick_p
-                nee_exists = (basis["light_id"] >= 0) & (lights.n_area[0] > 0)
-                mis_w = torch.where(
-                    st.spec_or_first | ~nee_exists,
-                    1.0,
-                    st.prev_bsdf_pdf
-                    / torch.clamp(st.prev_bsdf_pdf + pdf_nee_this, min=1e-12),
-                )
-            emit_mask = found & is_emitter
-            radiance = v3_where(
-                emit_mask,
-                v3_add(radiance, v3_scale(v3_mul(throughput0, emission), mis_w)),
-                radiance,
-            )
-
-            alive = found & ~is_emitter
-
-            # ---- local frame -------------------------------------------------
-            tan, bitan = basis["tan"], basis["bitan"]
-            wo = disney.to_local_c(tan, bitan, ns, v3_neg(st.ray_d))
-
-            # ---- NEE ---------------------------------------------------------
-            u_l = uniforms(2 + depth * 3, 3, st.pid, depth, 1)
-            (wi_l, dist_l, rad_over_pdf, is_delta, pdf_nee_sa,
-             pick_norm) = _sample_light_c(lights, pos, u_l[:, 0], u_l[:, 1],
-                                          u_l[:, 2], ns)
-            wi_local = disney.to_local_c(tan, bitan, ns, wi_l)
-            f_l = disney.disney_eval_c(params, wo, wi_local, config.mat_features)
-            cos_l = torch.clamp(wi_local[2], min=0.0)
-            can_light = alive & (total_lights > 0) & (cos_l > 0)
-            shadow_o = v3_add(pos, v3_scale(basis["ng"], config.shadow_eps))
-            # zero-contribution lanes get t_limit 0 and leave at once; bounce
-            # vertices may take the two-phase any hit (RFW_TP_SHADOW=1)
-            occ = (trace_occluded if first else trace_occluded_bounce)(
-                v3_stack(shadow_o), v3_stack(wi_l),
-                torch.where(can_light, dist_l - 2.0 * config.shadow_eps, 0.0))
-            if config.has_area_lights:
-                pdf_b_l = disney.disney_pdf_c(params, wo, wi_local,
-                                              config.mat_features)
-                mis_nee = torch.where(
-                    is_delta, 1.0,
-                    pdf_nee_sa / torch.clamp(pdf_nee_sa + pdf_b_l, min=1e-12))
-            else:
-                # delta-only lights: NEE is the sole strategy
-                mis_nee = 1.0
-            w_nee = cos_l * mis_nee
-            contrib = tuple(
-                torch.clamp(throughput0[j] * f_l[j] * w_nee * rad_over_pdf[j],
-                            0.0, config.clamp)
-                for j in range(3))
-            radiance = v3_where(can_light & ~occ, v3_add(radiance, contrib), radiance)
-
-            # ---- BSDF bounce (absent at the final vertex) ---------------------
-            if last:
-                return st._replace(
-                    radiance=radiance,
-                    throughput=throughput0,
-                    alive=torch.zeros_like(alive),
-                ), aovs
-
-            u_b = uniforms(3 + depth * 3, 3, st.pid, depth, 2)
-            wi_b, f_b, pdf_b, delta_b = disney.disney_sample_c(
-                params, wo, u_b[:, 0], u_b[:, 1], u_b[:, 2], config.mat_features)
-            # transmission samples leave through the lower hemisphere: |cos|
-            ok = alive & (pdf_b > 1e-9) & (torch.abs(wi_b[2]) > 1e-6)
-            wi_world = disney.to_world_c(tan, bitan, ns, wi_b)
-            bsdf_w = torch.abs(wi_b[2]) / torch.clamp(pdf_b, min=1e-9)
-            throughput = v3_where(
-                ok, v3_mul(throughput0, v3_scale(f_b, bsdf_w)), throughput0)
-            # offset the continuation off the surface on the side it leaves
-            side = torch.where(wi_b[2] >= 0, 1.0, -1.0)
-            new_o = v3_where(
-                ok, v3_add(pos, v3_scale(basis["ng"], config.shadow_eps * side)),
-                st.ray_o)
-            new_d = v3_where(ok, wi_world, st.ray_d)
-
-            return st._replace(
-                radiance=radiance,
-                throughput=throughput,
-                alive=ok,
-                spec_or_first=(params.roughness < 0.05) | delta_b,
-                prev_bsdf_pdf=pdf_b,
-                sort_hint=torch.where(found, hit.inst, -1),
-                ray_o=new_o,
-                ray_d=new_d,
-                pick_norm=pick_norm,
-            ), aovs
-
-        # ------------------------------------------------- bounce-vertex step
-        # "lockstep" keeps lanes in pixel order: no sort, no compaction ("packet"
-        # traced by the lockstep tier where no tile width divides R still sorts)
-        do_sort = (config.sort_secondary and config.traversal != "lockstep"
-                   and config.max_bounces >= 1)
-        # RFW_COMPACTION=0 (read at each call) traces every lane at every
-        # vertex: no host read of a live count
-        compact_on = (do_sort and config.compaction == "auto"
-                      and os.environ.get("RFW_COMPACTION", "1") == "1")
-        g = max(tile_lanes, 1)
-        sizes = _prefix_sizes(R, g, config.max_bounces) if compact_on else [R]
-        sizes0 = _prefix_sizes(R, g) if compact_on else [R]
-
-        def _sort_state(st: _PathState) -> _PathState:
-            """Re-sort lanes by SORT_KEY's key, dead last."""
-            skey = sort_key(st.ray_o, st.ray_d, scene_mn, scene_mx, st.alive, st.sort_hint)
-            perm = torch.sort(skey, stable=True).indices
-            return _tmap(lambda a: a[perm], st)
-
-        def _trace_and_shade(st: _PathState, depth: int, last: bool,
-                             n: int) -> _PathState:
-            """Trace + occlusion + shading on the first n lanes; the suffix
-            (all dead) passes through untouched."""
-            if n == R:
-                pre, suf = st, None
-            else:
-                pre = _tmap(lambda a: a[:n], st)
-                suf = _tmap(lambda a: a[n:], st)
-            hit = trace_bounce(v3_stack(pre.ray_o), v3_stack(pre.ray_d),
-                               torch.where(pre.alive, T_MAX, 0.0))
-            new_pre, _ = shade_vertex(pre, hit, depth, first=False, last=last)
-            if suf is None:
-                return new_pre
-            return _tmap(lambda a, b: torch.cat([a, b]), new_pre, suf)
-
-        def bounce_vertex(st: _PathState, depth: int, last: bool) -> _PathState:
-            with trace.span(f"rfw.bounce.{depth}"):
-                trace.count("route.classic_bounce", int(classic_bounce))
-                if do_sort:
-                    st = _sort_state(st)
-                if len(sizes) == 1:
-                    return _trace_and_shade(st, depth, last, sizes[0])
-                # host read of the live count picks the prefix length
-                with trace.span("rfw.wait.live_count"):
-                    live = int(st.alive.sum().item())
-                n = _pick_prefix(sizes, live)
-                trace.count("lanes.shaded", n)
-                trace.count("lanes.live", live)
-                # a rung below the 1-bounce ladder's floor: the deep ladder's
-                trace.count("ladder.subfloor", int(n < sizes0[0]))
-                if depth >= 2:
-                    trace.count("lanes.shaded.deep", n)
-                    trace.count("lanes.live.deep", live)
-                return _trace_and_shade(st, depth, last, n)
-
-        # ------------------------------------------------------- vertex 0
-        hit0 = trace_closest(v3_stack(ray_o), v3_stack(ray_d), T_MAX)
-        found0 = hit0.prim >= 0
-        sky0 = _sky(ray_d)
-        rad0 = tuple(torch.where(found0, 0.0, sky0[j]) for j in range(3))
-        v0_last = config.max_bounces == 0
-
-        def _mk_state(rad, alive, o, d, pp, n):
-            one = torch.ones(n, dtype=f32, device=dev)
-            return _PathState(
-                radiance=rad,
-                throughput=(one, one, one),
-                alive=alive,
-                spec_or_first=torch.ones(n, dtype=torch.bool, device=dev),
-                prev_bsdf_pdf=torch.zeros(n, dtype=f32, device=dev),
-                sort_hint=torch.full((n,), -1, dtype=torch.int32, device=dev),
-                ray_o=o, ray_d=d, pid=pp,
-                pick_norm=torch.zeros(n, dtype=f32, device=dev),
-            )
-
-        v0_compact = compact_on and len(sizes0) > 1
-        if v0_compact:
-            # shade only the hit lanes: sort by (hit?, prim block), then shade
-            # the hit prefix at the smallest covering length
-            key0 = torch.where(found0, hit0.prim >> 4, 1 << 30)
-            perm = torch.sort(key0, stable=True).indices
-            hit0, rad0, ray_o, ray_d, pid = _tmap(
-                lambda a: a[perm], (hit0, rad0, ray_o, ray_d, pid))
-            st = _mk_state(rad0, hit0.prim >= 0, ray_o, ray_d, pid, R)
-            with trace.span("rfw.wait.v0_hits"):
-                hits = int(found0.sum().item())
-            n0 = _pick_prefix(sizes0, hits)
-            trace.count("lanes.shaded", n0)
-            trace.count("lanes.live", hits)
-            if n0 == R:
-                st, aovs = shade_vertex(st, hit0, 0, first=True, last=v0_last,
-                                        add_sky=False)
-            else:
-                pre, suf = _tmap(lambda a: a[:n0], st), _tmap(lambda a: a[n0:], st)
-                new_pre, aovs = shade_vertex(pre, _tmap(lambda a: a[:n0], hit0), 0,
-                                             first=True, last=v0_last, add_sky=False)
-                st = _tmap(lambda a, b: torch.cat([a, b]), new_pre, suf)
-                z = torch.zeros(R - n0, dtype=f32, device=dev)
-                aov_tail = dict(
-                    albedo=(z, z, z), normal=(z, z, z),
-                    depth=torch.full((R - n0,), T_MAX, dtype=f32, device=dev),
-                    position=(z, z, z), ao=torch.ones(R - n0, dtype=f32, device=dev))
-                aovs = _tmap(lambda a, b: torch.cat([a, b]), aovs, aov_tail)
-        else:
-            st = _mk_state(rad0, found0, ray_o, ray_d, pid, R)
-            st, aovs = shade_vertex(st, hit0, 0, first=True, last=v0_last,
-                                    add_sky=False)
+        f = _frame(scene, mats, atlas, lights, view, width, height, config, sky_tex,
+                   use_sobol, sample_index, key, row0)
+        st, aovs = _vertex0(f)
         pid0 = st.pid.long()  # lane -> pixel map of the vertex-0 order (AOVs)
-
-    # ---------------------------------------------- middle + final vertices
-    for depth in range(1, config.max_bounces):
-        st = bounce_vertex(st, depth, last=False)
-    if config.max_bounces >= 1:
-        st = bounce_vertex(st, config.max_bounces, last=True)
-
-    # ------------------------------------------------------------- output
-    def to_pixels(a: torch.Tensor, lane_pid: torch.Tensor) -> torch.Tensor:
-        out = torch.empty_like(a)
-        out[lane_pid - pid_base] = a
-        return out
-
-    radiance = torch.clamp(to_pixels(v3_stack(st.radiance), st.pid.long()), min=0.0)
-    if not config.aovs:
-        # AOV outputs are constants: no reorder needed
-        return SampleResult(
-            radiance=radiance,
-            albedo=v3_stack(aovs["albedo"]),
-            normal=v3_stack(aovs["normal"]),
-            depth=aovs["depth"],
-            position=v3_stack(aovs["position"]),
-            ao=aovs["ao"],
-        )
-    return SampleResult(
-        radiance=radiance,
-        albedo=to_pixels(v3_stack(aovs["albedo"]), pid0),
-        normal=to_pixels(v3_stack(aovs["normal"]), pid0),
-        depth=to_pixels(aovs["depth"], pid0),
-        position=to_pixels(v3_stack(aovs["position"]), pid0),
-        ao=to_pixels(aovs["ao"], pid0),
-    )
+    for depth in range(1, config.max_bounces + 1):
+        st = _bounce_vertex(f, st, depth)
+    return _result(f, st, aovs, pid0)

@@ -64,18 +64,18 @@ host already holds:
                  alive count
   lanes.shaded.deep, lanes.live.deep
                  the same two counts of the bounce vertices at depth 2
-                 or more only (render/wavefront.py:render_sample's
-                 `bounce_vertex`); a 1-bounce frame records neither
+                 or more only (render/wavefront.py:`_shade_live`); a
+                 1-bounce frame records neither
   ladder.subfloor
                  bounce vertices whose live prefix took one of the two
                  rungs the deep ladder adds below the 1-bounce ladder's
                  floor (`_prefix_sizes` at max_bounces >= 3,
-                 `_pick_prefix`; render_sample's `bounce_vertex`): 0
+                 `_pick_prefix`; render/wavefront.py:`_shade_live`): 0
                  under RFW_DEEP_LADDER=0 and at fewer than 3 bounces
   route.classic_bounce
                  bounce vertices whose closest hits the kernel tier's
                  classic walk traced (`ops.traverse.closest_hit`, K1 on
-                 the card; render_sample's `bounce_vertex`): max_bounces
+                 the card; render/wavefront.py:`_bounce_vertex`): max_bounces
                  a frame on the card under two_phase="auto", 0 where the
                  two-phase route ran (and in the lockstep and packet tiers)
   tp.truncated   rays a two-phase call could not decide (the nonzero of

@@ -130,6 +130,29 @@ def test_compaction_and_sort_do_not_change_pixels(scene):
         np.testing.assert_allclose(other, base, rtol=1e-5, atol=1e-6)
 
 
+def test_vertex0_compaction_with_aovs_does_not_change_pixels(scene, monkeypatch):
+    """Vertex 0 shades its hit prefix, shorter than R, with the AOVs on: the
+    dead tail takes the no-hit AOVs and the vertex-0 lane order puts every
+    AOV back in pixel order. A two-rung ladder brings compaction to 32x32
+    (the real one starts at 16,384 rays); radiance and every AOV, ambient
+    occlusion included, equal those of `compaction="off"` per pixel."""
+    kw = {**_cfg_kwargs(scene[1], 1), "ao_aov": True}
+    base = _port_render(scene, kw, compaction="off")
+    shaded = []
+    real = tw._pick_prefix
+
+    def pick(sizes, live):
+        shaded.append(real(sizes, live))
+        return shaded[-1]
+
+    monkeypatch.setattr(tw, "_pick_prefix", pick)
+    monkeypatch.setattr(tw, "_prefix_sizes", lambda R, g, max_bounces=1: [3 * R // 4, R])
+    got = _port_render(scene, kw)
+    assert len(shaded) == 2 and shaded[0] < W * H  # vertex 0, then the bounce
+    for k, ref in base.items():
+        np.testing.assert_array_equal(got[k], ref, err_msg=k)
+
+
 @pytest.mark.parametrize("bad,exc", [(dict(sampler="random"), ValueError),
                                      (dict(two_phase="maybe"), ValueError),
                                      (dict(traversal="bogus"), ValueError)])
