@@ -4,6 +4,7 @@
     python3 chip_smoke.py --sass-against DIR   # the walk kernels' SASS
                                                # against another tree's
     python3 chip_smoke.py --sobol              # phase 19 alone
+    python3 chip_smoke.py --disney             # phase 20 alone
 
 Drives rfw_tpu_torch's main paths — one progressive path-traced sample per
 call of `render_sample`, 1920x1080, 1 bounce + next-event estimation, Sobol
@@ -40,7 +41,8 @@ Phases (any failed check raises, so the script exits nonzero):
   5. the main path at 1920x1080 with two_phase="off": a warm-up sample
      whose traversal inputs are captured, each kernel against its plain
      version on exactly those inputs (compare_call, with both times), then 8 timed
-     samples with the kernels' launch counters reset just before them;
+     samples with the kernels' launch counters reset just before them
+     (the Disney BSDF kernels' must read 3 a sample);
   6. where the time goes: one sample with every stage bracketed by
      torch.cuda.synchronize(), one profiled sample (device time by
      kernel), and 4 samples traced with device activity only;
@@ -265,6 +267,16 @@ Phases (any failed check raises, so the script exits nonzero):
      written at 3.35 TB/s against `sobol_ops` at the INT32 rate) and the
      plain version's ms (tests/test_torch_sampler.py's
      `test_sobol_kernel_matches_plain_on_card`).
+ 20. the Disney BSDF kernels (csrc/disney.cu): the 3 BSDF calls of one
+     1080p sample captured (vertex 0's NEE eval + pdf and its sample, the
+     bounce's NEE eval + pdf, on the main path's strided column views and
+     the scene's feature mask), each launched once more (disney.LAUNCHES
+     up by exactly 1) and identical bit for bit to the plain versions
+     (`disney_eval_plain_c`, `disney_pdf_plain_c`,
+     `disney_sample_plain_c`); card ms over 10 launches beside its bound
+     (20 planes read and 3-4 planes, or 7 and a bool, written at 3.35
+     TB/s) and the plain versions' ms (tests/test_torch_disney.py's
+     `test_kernels_match_plain_on_card`).
 The tests that need a card (tests/test_torch_*.py, `*_on_card`) cannot run
 where the card is (their conftest imports jax); these phases make their
 checks (.claude/skills/verify/SKILL.md maps each test to its phase).
@@ -294,11 +306,13 @@ compared calls, their disagreements counted in max_abs_err. K1-K5
 carry their supernode `arity`; the entries of arity 16 and 32 (phase 16)
 count their launches in that arity's counted sample and sum their times,
 plain times and bounds over phase 16's compared calls at that arity (a
-16-wide row is 512 B, a 32-wide one 1 KiB). The last entry, S1, is
+16-wide row is 512 B, a 32-wide one 1 KiB). The next entry, S1, is
 phase 19's Sobol kernel, which replaces no TPU kernel (`replaces` null):
 its launches in one sample, its times, plain times and bounds summed over
 that sample's five draws, each bounded by bytes or by its 32-bit
-operations at the INT32 rate. The last line is
+operations at the INT32 rate. After it B1, phase 20's Disney BSDF
+kernels, which replace no TPU kernel either: likewise over the sample's
+3 BSDF calls, each bounded by bytes. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -1122,6 +1136,7 @@ def stage_breakdown(card, run):
         _fetch_material_c="material + textures", _sample_light_c="NEE light sample",
         morton_codes_c="sort key (Morton)")
     disney_stages = dict(disney_eval_c="disney eval", disney_pdf_c="disney pdf",
+                         disney_eval_pdf_c="disney eval + pdf",
                          disney_sample_c="disney sample")
     with patched(wf, **{f: clock.wrap(n, getattr(wf, f)) for f, n in wf_stages.items()}), \
             patched(disney, **{f: clock.wrap(n, getattr(disney, f))
@@ -4185,27 +4200,137 @@ def phase19(card, dev, scene, mats, atlas, lights, view, base) -> dict:
     return kernel_row("S1 sobol_slot", "rfw_tpu_torch/csrc/sampler.cu", None, draws, rows)
 
 
-def sobol_alone(card) -> int:
-    """Phase 19 alone (`python3 chip_smoke.py --sobol`) on phase 2's scene
-    and phase 5's settings: the kernels build at first use."""
+# ------------------------------------------------------------------ phase 20
+DISNEY_REPS = 10
+#: float planes a lane of csrc/disney.cu reads: the 14 of the material
+#: (`anisotropic` unread), wo, and wi or the 3 uniforms
+DISNEY_PLANES_IN = 20
+
+
+def capture_disney(run) -> list:
+    """run()'s BSDF calls at wavefront.py's sites: ("eval_pdf", p, wo, wi,
+    features, with_pdf) or ("sample", p, wo, u0, u1, u2, features) each,
+    its inputs held as they lie (the main path writes none of them in
+    place), so their strides are the main path's."""
+    from rfw_tpu_torch.render import disney
+
+    calls, eval_pdf, sample = [], disney.disney_eval_pdf_c, disney.disney_sample_c
+
+    def cap_eval_pdf(p, wo, wi, features=disney.FEAT_ALL, with_pdf=True):
+        calls.append(("eval_pdf", p, wo, wi, features, with_pdf))
+        return eval_pdf(p, wo, wi, features, with_pdf)
+
+    def cap_sample(p, wo, u0, u1, u2, features=disney.FEAT_ALL):
+        calls.append(("sample", p, wo, u0, u1, u2, features))
+        return sample(p, wo, u0, u1, u2, features)
+
+    with patched(disney, disney_eval_pdf_c=cap_eval_pdf, disney_sample_c=cap_sample):
+        run()
+    torch.cuda.synchronize()
+    return calls
+
+
+def disney_call(call, plain: bool):
+    """One captured BSDF call through the kernel or the plain versions, its
+    outputs flattened: (float planes, is_delta or None)."""
+    from rfw_tpu_torch.render import disney
+
+    if call[0] == "eval_pdf":
+        _, p, wo, wi, features, with_pdf = call
+        if plain:
+            f = disney.disney_eval_plain_c(p, wo, wi, features)
+            pdf = disney.disney_pdf_plain_c(p, wo, wi, features) if with_pdf else None
+        else:
+            f, pdf = disney.disney_eval_pdf_c(p, wo, wi, features, with_pdf)
+        return [*f, *([pdf] if with_pdf else [])], None
+    _, p, wo, u0, u1, u2, features = call
+    fn = disney.disney_sample_plain_c if plain else disney.disney_sample_c
+    wi, f, pdf, is_delta = fn(p, wo, u0, u1, u2, features)
+    return [*wi, *f, pdf], is_delta
+
+
+def disney_bound(call) -> float:
+    """Least ms of one BSDF call: its input planes read and its outputs
+    written at 3.35 TB/s (bytes bound it: csrc/disney.cu's head note)."""
+    lanes = call[2][2].shape[0]
+    if call[0] == "eval_pdf":
+        out_bytes = 4 * (4 if call[5] else 3)
+    else:
+        out_bytes = 4 * 7 + 1
+    return lanes * (4 * DISNEY_PLANES_IN + out_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def phase20(card, dev, scene, mats, atlas, lights, view, base) -> dict:
+    """The Disney BSDF kernels (B1) on the main path's inputs: one 1080p
+    1-bounce sample's 3 BSDF calls captured (vertex 0's NEE eval + pdf and
+    its sample, the bounce's NEE eval + pdf), on their strided column views
+    and the config's feature mask; each launched once (disney.LAUNCHES
+    rises by exactly 1) and bit for bit the plain versions'; its card ms
+    over DISNEY_REPS launches beside its bound and the plain versions' ms.
+    Returns the kernels line's entry."""
+    from rfw_tpu_torch.render import disney
+    from rfw_tpu_torch.render.wavefront import RenderConfig, render_sample
+
+    t_phase = time.perf_counter()
+    cfg = RenderConfig(**base)
+    before = disney.LAUNCHES
+    calls = capture_disney(lambda: render_sample(scene, mats, atlas, lights, view, W, H, cfg,
+                                                 sample_index=3))
+    launches = disney.LAUNCHES - before
+    log(card, f"phase 20: one 1080p sample makes {len(calls)} BSDF calls, {launches} kernel "
+              f"launches: " + ", ".join(f"{c[0]} {c[2][2].shape[0]} lanes" for c in calls))
+    assert [c[0] for c in calls] == ["eval_pdf", "sample", "eval_pdf"], [c[0] for c in calls]
+    assert launches == len(calls) == 3, (launches, len(calls))
+    strided = sum(t.stride(0) != 1 for t in disney._planes(calls[0][1], calls[0][2], calls[0][3]))
+    rows = []
+    for call in calls:
+        before = disney.LAUNCHES
+        got, got_delta = disney_call(call, plain=False)
+        assert disney.LAUNCHES == before + 1, "a BSDF call launched other than once"
+        ref, ref_delta = disney_call(call, plain=True)
+        assert len(got) == len(ref)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert torch.equal(bits(g), bits(r)), f"{call[0]} output {i}: kernel and plain differ"
+        if got_delta is not None:
+            assert torch.equal(got_delta, ref_delta), "sample is_delta: kernel and plain differ"
+        ms = cuda_ms(lambda: disney_call(call, plain=False), DISNEY_REPS)
+        plain_ms = cuda_ms(lambda: disney_call(call, plain=True), DISNEY_REPS)
+        lanes = call[2][2].shape[0]
+        bound_ms = disney_bound(call)
+        rows.append(dict(call=call[0], features=call[-2] if call[0] == "eval_pdf" else call[-1],
+                         lanes=lanes, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by="bytes", max_abs_err=0.0))
+        log(card, f"phase 20 {call[0]} on {lanes} lanes: identical; kernel {ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms (bytes), {100 * bound_ms / ms:.1f}% of it; plain "
+                  f"{plain_ms:.3f} ms")
+    ms, plain_ms = sum(r["ms"] for r in rows), sum(r["plain_ms"] for r in rows)
+    log(card, f"phase 20: a sample's 3 BSDF calls ({strided} of the 20 input planes strided "
+              f"views): kernel {ms:.4f} ms, bound {sum(r['bound_ms'] for r in rows):.4f} ms, "
+              f"plain {plain_ms:.2f} ms; {time.perf_counter() - t_phase:.2f} s")
+    return kernel_row("B1 disney", "rfw_tpu_torch/csrc/disney.cu", None, launches, rows)
+
+
+def phase_alone(card, lib: str, phase) -> int:
+    """Phase 19 or 20 alone (`python3 chip_smoke.py --sobol` or `--disney`)
+    on phase 2's scene and phase 5's settings: `lib` builds first, the
+    other kernels at first use."""
     from rfw_tpu_torch.convert import from_numpy_scene
-    from rfw_tpu_torch.render.wavefront import mat_feature_mask, tex_kinds_mask
     from rfw_tpu_torch.scenes import build_scene
 
     from rfw_tpu_torch.ops import _build
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
-    (built,) = _build.build(["sampler"])
-    log(card, f"sampler kernel build: {built.seconds:.2f} s")
+    (built,) = _build.build([lib])
+    log(card, f"{lib} kernel build: {built.seconds:.2f} s")
     for line in built.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(card, "ptxas sampler: " + line.strip())
+            log(card, f"ptxas {lib}: " + line.strip())
     scene_np, mats_np, lights_np, atlas_np, camera, _, _ = build_scene(SEED, views=True)
     scene, mats, lights, atlas = from_numpy_scene(scene_np, mats_np, lights_np, atlas_np, dev)
     view = torch.from_numpy(camera.get_view(W, H).as_array()).to(dev)
     base = main_path_settings(mats_np, lights_np)
-    print(json.dumps({"kernels": [phase19(card, dev, scene, mats, atlas, lights, view, base)]}))
+    print(json.dumps({"kernels": [phase(card, dev, scene, mats, atlas, lights, view, base)]}))
     print(card)
     return 0
 
@@ -4246,7 +4371,9 @@ def main() -> int:
         sass_against(card_line(), Path(sys.argv[2]).resolve())
         return 0
     if sys.argv[1:2] == ["--sobol"]:
-        return sobol_alone(card_line())
+        return phase_alone(card_line(), "sampler", phase19)
+    if sys.argv[1:2] == ["--disney"]:
+        return phase_alone(card_line(), "disney", phase20)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -4318,6 +4445,8 @@ def main() -> int:
     assert px_ok >= 0.995, f"kernel and lockstep renders agree on only {px_ok} of pixels"
 
     # ---- 5. the main path at 1920x1080
+    from rfw_tpu_torch.render import disney
+
     cfg = RenderConfig(**base)
 
     def sample(s):
@@ -4331,6 +4460,7 @@ def main() -> int:
     torch.cuda.synchronize()
     film = new_film(W, H, device=dev)
     reset_launches()
+    disney.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     for s in range(SPP):
@@ -4338,6 +4468,7 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: read_launches()[k] for k in tr.LAUNCHES}
+    assert disney.LAUNCHES == 3 * SPP, f"B1 launched {disney.LAUNCHES} times in {SPP} samples"
     peak = torch.cuda.max_memory_allocated(dev)
     frame = tonemap(film, SPP, W, H)
     torch.cuda.synchronize()
@@ -4406,6 +4537,9 @@ def main() -> int:
     # ---- 19. the Sobol kernel on the main path's pixel ids
     sobol_row = phase19(card, dev, scene, mats, atlas, lights, view_full, base)
 
+    # ---- 20. the Disney BSDF kernels on the main path's inputs
+    disney_row = phase20(card, dev, scene, mats, atlas, lights, view_full, base)
+
     row = kernel_row
 
     def fallback(kind):
@@ -4458,7 +4592,7 @@ def main() -> int:
         k["launches_bench"] = sum(bench_launches.get(kind, 0) for kind in kinds)
         k["launches_uncompacted"] = sum(p17["launches"].get(kind, 0) for kind in kinds)
         k["launches_textures"] = sum(tex_launches.get(kind, 0) for kind in kinds)
-    kernels += [*wide["entries"], sobol_row]
+    kernels += [*wide["entries"], sobol_row, disney_row]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -100,6 +100,22 @@ SIGNATURES = {
             _p,  # stream
         ],
     },
+    "disney": {
+        "rfw_disney_eval_pdf": [
+            _p, _p,  # planes (20 device pointers), strides (20 int64), host arrays
+            _i, _i,  # features, with_pdf
+            _i,  # n_lanes
+            _p,  # out (3 or 4, n) float32
+            _p,  # stream
+        ],
+        "rfw_disney_sample": [
+            _p, _p,  # planes, strides
+            _i,  # features
+            _i,  # n_lanes
+            _p, _p,  # out (7, n) float32, is_delta (n,) bool
+            _p,  # stream
+        ],
+    },
     "ubench_leaf": {
         "rfw_ubench_leaf": [
             _i,  # variant

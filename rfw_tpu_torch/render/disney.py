@@ -9,13 +9,22 @@ lobe. Shading happens in local space (normal = +z); eval() excludes the
 The core (`*_c` functions) is component-wise: 3-vectors and colors are
 (x, y, z) tuples of (R,) float32 tensors, as in the JAX package, so the two
 can be compared term by term.
+
+`disney_eval_c`, `disney_pdf_c`, `disney_eval_pdf_c` and `disney_sample_c`
+run on the card by the hand-written CUDA kernels of `csrc/disney.cu` (one
+launch a call, inputs read where they lie through their strides) and on the
+CPU by their plain versions (`*_plain_c`): the same bits either way.
+`LAUNCHES` counts the kernels' launches.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from rfw_tpu_torch.utils import trace
 
 PI = 3.14159265358979
 
@@ -27,6 +36,9 @@ FEAT_CLEARCOAT = 2
 FEAT_SUBSURFACE = 4
 FEAT_SHEEN = 8
 FEAT_ALL = 15
+
+#: launches of the BSDF kernels; each call on CUDA tensors with lanes adds one
+LAUNCHES = 0
 
 #: a component 3-vector: (x, y, z) tuple of (R,) tensors
 Vec3C = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -146,12 +158,10 @@ def _tint_c(base: Vec3C) -> Vec3C:
 
 
 # ------------------------------------------------------------- component core
-def disney_eval_c(p: MatParams, wo: Vec3C, wi: Vec3C,
-                  features: int = FEAT_ALL) -> Vec3C:
-    """BRDF value f(wo, wi) in local space (+z = normal), per channel.
-
-    Reflection-only; the transmission share scales the reflective lobes
-    down (the glass lobe itself is sampled by disney_sample_c)."""
+def disney_eval_plain_c(p: MatParams, wo: Vec3C, wi: Vec3C,
+                        features: int = FEAT_ALL) -> Vec3C:
+    """`disney_eval_c` in eager torch operations, on any device: the CPU's
+    path and the kernel's yardstick."""
     ndv = wo[2]
     ndl = wi[2]
     up = (ndv > 1e-6) & (ndl > 1e-6)
@@ -226,9 +236,9 @@ def disney_eval_c(p: MatParams, wo: Vec3C, wi: Vec3C,
     return tuple(out)
 
 
-def disney_pdf_c(p: MatParams, wo: Vec3C, wi: Vec3C,
-                 features: int = FEAT_ALL) -> torch.Tensor:
-    """Solid-angle pdf of disney_sample for the given pair. (R,)."""
+def disney_pdf_plain_c(p: MatParams, wo: Vec3C, wi: Vec3C,
+                       features: int = FEAT_ALL) -> torch.Tensor:
+    """`disney_pdf_c` in eager torch operations, on any device."""
     ndl = wi[2]
     ndv = wo[2]
     up = (ndl > 1e-6) & (ndv > 1e-6)
@@ -323,15 +333,10 @@ def _reflect_c(wo: Vec3C, h: Vec3C) -> Vec3C:
     return v3_sub(v3_scale(h, k), wo)
 
 
-def disney_sample_c(
+def disney_sample_plain_c(
     p: MatParams, wo: Vec3C, u0, u1, u2, features: int = FEAT_ALL
 ) -> Tuple[Vec3C, Vec3C, torch.Tensor, torch.Tensor]:
-    """Sample wi ~ pdf; (u0,u1,u2): (R,) uniforms (lobe pick, 2x direction).
-
-    Returns (wi, f, pdf, is_delta) — f excludes the ndl cosine. The
-    transmission lobe is delta-style: pdf == trans share and
-    f == weight * share / |wi.z|, so f*|cos|/pdf applies exactly `weight`;
-    is_delta marks those lanes."""
+    """`disney_sample_c` in eager torch operations, on any device."""
     spec_w, cc_w, _ = _lobe_weights(p, features)
     pick = u0
     if features & FEAT_TRANSMISSION:
@@ -360,9 +365,9 @@ def disney_sample_c(
     else:
         wi = v3_where(use_spec, wi_spec, wi_diff)
     wi = v3_normalize(wi)
-    f = disney_eval_c(p, wo, wi, features)
-    # disney_pdf_c already folds in the (1 - trans_w) share
-    pdf = disney_pdf_c(p, wo, wi, features)
+    f = disney_eval_plain_c(p, wo, wi, features)
+    # disney_pdf_plain_c already folds in the (1 - trans_w) share
+    pdf = disney_pdf_plain_c(p, wo, wi, features)
 
     if not features & FEAT_TRANSMISSION:
         return wi, f, pdf, use_trans
@@ -390,6 +395,110 @@ def disney_sample_c(
     f = v3_where(use_trans, f_trans, f)
     pdf = torch.where(use_trans, pdf_trans, pdf)
     return wi, f, pdf, use_trans
+
+
+# ------------------------------------------------------ kernel or plain
+def disney_eval_c(p: MatParams, wo: Vec3C, wi: Vec3C,
+                  features: int = FEAT_ALL) -> Vec3C:
+    """BRDF value f(wo, wi) in local space (+z = normal), per channel.
+
+    Reflection-only; the transmission share scales the reflective lobes
+    down (the glass lobe itself is sampled by disney_sample_c)."""
+    return disney_eval_pdf_c(p, wo, wi, features, False)[0]
+
+
+def disney_pdf_c(p: MatParams, wo: Vec3C, wi: Vec3C,
+                 features: int = FEAT_ALL) -> torch.Tensor:
+    """Solid-angle pdf of disney_sample for the given pair. (R,)."""
+    if _on_card(wo):
+        return disney_eval_pdf_c(p, wo, wi, features, True)[1]
+    return disney_pdf_plain_c(p, wo, wi, features)
+
+
+def disney_eval_pdf_c(p: MatParams, wo: Vec3C, wi: Vec3C, features: int = FEAT_ALL,
+                      with_pdf: bool = True) -> Tuple[Vec3C, Optional[torch.Tensor]]:
+    """(disney_eval_c, disney_pdf_c if with_pdf else None) of one pair: one
+    launch on the card."""
+    if _on_card(wo):
+        out, _ = _launch(p, wo, wi, features, 4 if with_pdf else 3, False)
+        return (out[0], out[1], out[2]), out[3] if with_pdf else None
+    f = disney_eval_plain_c(p, wo, wi, features)
+    return f, disney_pdf_plain_c(p, wo, wi, features) if with_pdf else None
+
+
+def disney_sample_c(
+    p: MatParams, wo: Vec3C, u0, u1, u2, features: int = FEAT_ALL
+) -> Tuple[Vec3C, Vec3C, torch.Tensor, torch.Tensor]:
+    """Sample wi ~ pdf; (u0,u1,u2): (R,) uniforms (lobe pick, 2x direction).
+
+    Returns (wi, f, pdf, is_delta) — f excludes the ndl cosine. The
+    transmission lobe is delta-style: pdf == trans share and
+    f == weight * share / |wi.z|, so f*|cos|/pdf applies exactly `weight`;
+    is_delta marks those lanes."""
+    if not _on_card(wo):
+        return disney_sample_plain_c(p, wo, u0, u1, u2, features)
+    out, is_delta = _launch(p, wo, (u0, u1, u2), features, 7, True)
+    return (out[0], out[1], out[2]), (out[3], out[4], out[5]), out[6], is_delta
+
+
+def _on_card(wo: Vec3C) -> bool:
+    dev = wo[2].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the Disney BSDF takes tensors on the CPU or a CUDA device, not {dev}")
+    return dev.type == "cuda"
+
+
+def _planes(p: MatParams, wo: Vec3C, w) -> tuple:
+    """The kernels' 20 input planes (csrc/disney.cu's `Plane` order)."""
+    return (*p.base_c, p.metallic, p.roughness, p.specular_f, p.specular_tint, p.sheen,
+            p.sheen_tint, p.clearcoat, p.clearcoat_gloss, p.subsurface, p.transmission,
+            p.eta_rel, *wo, *w)
+
+
+def _launch(p: MatParams, wo: Vec3C, w, features: int, k: int, sample: bool):
+    """One launch of csrc/disney.cu's eval/pdf kernel (k = 3 or 4 rows out)
+    or its sample kernel (k = 7 rows and is_delta). Each input is a float32
+    tensor on the card of shape (n,), read through its stride (one value
+    broadcasts). Returns (the (k, n) output block, is_delta or None); n = 0
+    launches nothing."""
+    from rfw_tpu_torch.ops._build import load_library
+    from rfw_tpu_torch.ops.traverse import stream_of
+
+    global LAUNCHES
+    dev = wo[2].device
+    n = wo[2].shape[0] if wo[2].dim() == 1 else -1
+    if n < 0 or n >= 2**31:
+        raise ValueError(f"the Disney kernels take (n,) planes with n < 2**31, not "
+                         f"{tuple(wo[2].shape)}")
+    ptrs, strides = [], []
+    for t in _planes(p, wo, w):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"the Disney kernels take float32 tensors on {dev}, not "
+                             f"{t.dtype if isinstance(t, torch.Tensor) else type(t).__name__}"
+                             f" on {getattr(t, 'device', 'the host')}")
+        if t.shape != (n,):
+            t = torch.broadcast_to(t, (n,))
+        ptrs.append(t.data_ptr())
+        strides.append(t.stride(0))
+    out = torch.empty((k, n), dtype=torch.float32, device=dev)
+    is_delta = torch.empty(n, dtype=torch.bool, device=dev) if sample else None
+    if n == 0:
+        return out, is_delta
+    lib = load_library("disney")
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_strides = (ctypes.c_longlong * len(strides))(*strides)
+    with torch.cuda.device(dev):
+        if sample:
+            rc = lib.rfw_disney_sample(c_ptrs, c_strides, int(features), n, out.data_ptr(),
+                                       is_delta.data_ptr(), stream_of(dev))
+        else:
+            rc = lib.rfw_disney_eval_pdf(c_ptrs, c_strides, int(features), int(k == 4), n,
+                                         out.data_ptr(), stream_of(dev))
+    if rc != 0:
+        raise RuntimeError(f"Disney kernel launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    trace.count("disney.kernel_calls", 1)
+    return out, is_delta
 
 
 # ------------------------------------------------------------------ frames

@@ -1115,7 +1115,8 @@ def _shade_vertex(f: _Frame, st: _PathState, hit: Optional[Hit], depth: int):
      pick_norm) = _sample_light_c(lights, pos, u_l[:, 0], u_l[:, 1],
                                   u_l[:, 2], ns)
     wi_local = disney.to_local_c(tan, bitan, ns, wi_l)
-    f_l = disney.disney_eval_c(params, wo, wi_local, config.mat_features)
+    f_l, pdf_b_l = disney.disney_eval_pdf_c(params, wo, wi_local, config.mat_features,
+                                            config.has_area_lights)
     cos_l = torch.clamp(wi_local[2], min=0.0)
     can_light = alive & (f.total_lights > 0) & (cos_l > 0)
     shadow_o = v3_add(pos, v3_scale(basis["ng"], config.shadow_eps))
@@ -1125,8 +1126,6 @@ def _shade_vertex(f: _Frame, st: _PathState, hit: Optional[Hit], depth: int):
         v3_stack(shadow_o), v3_stack(wi_l),
         torch.where(can_light, dist_l - 2.0 * config.shadow_eps, 0.0))
     if config.has_area_lights:
-        pdf_b_l = disney.disney_pdf_c(params, wo, wi_local,
-                                      config.mat_features)
         mis_nee = torch.where(
             is_delta, 1.0,
             pdf_nee_sa / torch.clamp(pdf_nee_sa + pdf_b_l, min=1e-12))

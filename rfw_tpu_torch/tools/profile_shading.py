@@ -19,9 +19,14 @@ are device times by CUDA events, the least of `--reps` calls, divided by
                      taken out as far as a gather can be
   sample_light       `_sample_light_c` (the potential pick on the bench
                      lights)
-  disney_eval        `disney.disney_eval_c`
-  disney_pdf         `disney.disney_pdf_c`
-  disney_sample      `disney.disney_sample_c` (its eval and pdf included)
+  disney_eval        `disney.disney_eval_c` (on the card the eval/pdf
+                     kernel of csrc/disney.cu)
+  disney_pdf         `disney.disney_pdf_c` (the same kernel, with the pdf)
+  disney_sample      `disney.disney_sample_c` (its eval and pdf included;
+                     on the card the sample kernel of csrc/disney.cu)
+  disney_*_plain     the same three by `disney_eval_plain_c`,
+                     `disney_pdf_plain_c` and `disney_sample_plain_c`, the
+                     kernels' yardsticks (eager torch operations)
   sobol3             one `sampler.sample_slot(R, 3)` draw (on the card the
                      Sobol kernel, csrc/sampler.cu)
   sobol3_plain       the same draw by `sampler.sample_slot_plain`, the
@@ -54,8 +59,8 @@ from rfw_tpu_torch.tools import (
 )
 
 STAGES = ("gather_tri_shade", "gather_atlas", "basis_full", "basis_math", "sample_light",
-          "disney_eval", "disney_pdf", "disney_sample", "sobol3", "sobol3_plain",
-          "frame_tolocal")
+          "disney_eval", "disney_eval_plain", "disney_pdf", "disney_pdf_plain",
+          "disney_sample", "disney_sample_plain", "sobol3", "sobol3_plain", "frame_tolocal")
 
 
 def main(argv=None) -> dict:
@@ -174,37 +179,40 @@ def main(argv=None) -> dict:
     # ---- Disney
     woc, wic = v3_split(wo0), v3_split(wi0)
 
-    def ev():
+    def ev(eval_c):
         acc = zeros()
         wc = wic
         for _ in range(IT):
-            f = disney.disney_eval_c(params0, woc, wc)
+            f = eval_c(params0, woc, wc)
             acc = acc + f[0] + f[1] + f[2]
             wc = (wc[0] + acc * 1e-12, wc[1], wc[2])
         return acc
 
-    timed("disney_eval", ev)
+    timed("disney_eval", lambda: ev(disney.disney_eval_c))
+    timed("disney_eval_plain", lambda: ev(disney.disney_eval_plain_c))
 
-    def pdf():
+    def pdf(pdf_c):
         acc = zeros()
         wc = wic
         for _ in range(IT):
-            acc = acc + disney.disney_pdf_c(params0, woc, wc)
+            acc = acc + pdf_c(params0, woc, wc)
             wc = (wc[0] + acc * 1e-12, wc[1], wc[2])
         return acc
 
-    timed("disney_pdf", pdf)
+    timed("disney_pdf", lambda: pdf(disney.disney_pdf_c))
+    timed("disney_pdf_plain", lambda: pdf(disney.disney_pdf_plain_c))
 
-    def smp():
+    def smp(sample_c):
         acc = zeros()
         uu = u3
         for _ in range(IT):
-            wi, f, pdf_b, _ = disney.disney_sample_c(params0, woc, uu[:, 0], uu[:, 1], uu[:, 2])
+            wi, f, pdf_b, _ = sample_c(params0, woc, uu[:, 0], uu[:, 1], uu[:, 2])
             acc = acc + wi[0] + f[0] + pdf_b
             uu = torch.abs(torch.sin(uu + acc[:, None] * 1e-9))
         return acc
 
-    timed("disney_sample", smp)
+    timed("disney_sample", lambda: smp(disney.disney_sample_c))
+    timed("disney_sample_plain", lambda: smp(disney.disney_sample_plain_c))
 
     # ---- the sampler
     def sob(draw):

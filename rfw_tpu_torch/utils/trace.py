@@ -86,6 +86,12 @@ host already holds:
                  launches of the Sobol kernel (render/sampler.py's
                  `sample_slot` on the card): 5 a 1-bounce Sobol sample,
                  0 where the draws took the plain version
+  disney.kernel_calls
+                 launches of the Disney BSDF kernels (render/disney.py's
+                 `_launch` on the card): 3 a 1-bounce frame, 7 at 3
+                 bounces (NEE eval and pdf at every vertex, a sample at
+                 every vertex but the last), 0 where the BSDF took the
+                 plain version; a vertex with no live lane launches none
 
 `tp.truncated - tp.retraced` is the number of rays that kept an
 approximate answer (a two-phase hit among their kept instances, or
