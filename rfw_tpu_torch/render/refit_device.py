@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from rfw_tpu_torch.render.pack import TraceScene
+from rfw_tpu_torch.utils import trace
 
 
 class UnitPlan(NamedTuple):
@@ -654,7 +655,12 @@ def apply_dynamic(
     """One device update: skin/morph every unit, re-bake its arena slices,
     refit all BLAS mirrors, then the instance boxes and TLAS mirrors.
     Plans and poses are tensors on the scene's device (`plan_to_device`).
-    Returns a new TraceScene; the input's tensors are not written."""
+    Returns a new TraceScene; the input's tensors are not written. Counts
+    the units (`dyn.units`) and the vertices skinned (`dyn.vertices`: those
+    of the units with a pose) while a profiler records."""
+    trace.count("dyn.units", len(plans))
+    trace.count("dyn.vertices", sum(p.rest_pos.shape[0] for p, jm in zip(plans, poses)
+                                    if jm is not None))
     out = {f: getattr(scene, f).clone() for f in UNIT_FIELDS}
     ibmin = scene.inst_aabb_min.clone()
     ibmax = scene.inst_aabb_max.clone()
@@ -666,7 +672,8 @@ def apply_dynamic(
                                     omin.expand(n, 3), omax.expand(n, 3))
             ibmin[plan.inst_rows] = wmin
             ibmax[plan.inst_rows] = wmax
-    return _refit_tlas(scene._replace(**out), tlas_plan, ibmin, ibmax)
+    with trace.span("rfw.sync.dynamics.tlas"):
+        return _refit_tlas(scene._replace(**out), tlas_plan, ibmin, ibmax)
 
 
 def instance_motion_update(

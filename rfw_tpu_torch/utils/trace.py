@@ -16,6 +16,10 @@ Spans of the frame's stages, which tile the program's part of a frame:
   rfw.sync            TorchBackend.synchronize
   rfw.sync.motion     the device motion route (`_try_device_motion`)
   rfw.sync.dynamics   the device dynamics route (`_apply_device_dynamics`)
+  rfw.sync.dynamics.tlas
+                      in it, the TLAS half of the refit: `refit_device.
+                      apply_dynamic`'s `_refit_tlas` call, every TLAS
+                      mirror over every instance row
   rfw.sync.repack     the host instance repack (`_sync_instances`)
   rfw.sync.rebuild    the full rebuild (`_rebuild_scene`)
   rfw.sync.upload     materials, textures and lights
@@ -86,6 +90,11 @@ host already holds:
                  launches of the Sobol kernel (render/sampler.py's
                  `sample_slot` on the card): 5 a 1-bounce Sobol sample,
                  0 where the draws took the plain version
+  dyn.units      deform units (one a distinct (mesh, skin, morph weights)
+                 group) that `refit_device.apply_dynamic` re-bakes and
+                 refits: every unit of the scene, each dynamics sync
+  dyn.vertices   the vertices it skins there: the rest vertices of every
+                 unit with a pose (a morph-only unit counts none)
   disney.kernel_calls
                  launches of the Disney BSDF kernels (render/disney.py's
                  `_launch` on the card): 3 a 1-bounce frame, 7 at 3
